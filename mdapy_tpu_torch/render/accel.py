@@ -1,0 +1,292 @@
+"""Acceleration structures for the render slice — binning, not BVHs.
+
+Port of the sphere path of ``mdapy_tpu/render/accel.py``:
+
+  * screen-tile bins (``build_screen_bins`` :417): conservative per-sphere
+    screen-space spans -> (tile, sphere) pairs -> per-tile candidate lists,
+    depth-sorted front to back and cut into 128-wide chunks, each with its
+    minimum conservative depth (``zmin``) for the kernel's early exit;
+  * light-grid bins (``build_light_bins`` :528): a 2D grid perpendicular to
+    the directional light; each cell lists the spheres whose lateral
+    footprint overlaps it, sorted by descending far-depth key c.L + r;
+  * light records (``build_light_records`` :613): the CSR rows
+    ``[cu, cv, ck, r, key, alpha, 0, 0]`` the shadow sweep reads, with the
+    per-cell maximum key ``lkmax``.
+
+The (bucket, item) pair expansion is ``repeat_interleave`` over the span
+sizes, so the scatter-offset clamp of the JAX build (``accel.py:86``,
+ROADMAP fault C1) has no counterpart here.  The power-of-two capacity caches
+and the 128-lane padding of the JAX build exist only for XLA's static shapes
+and are dropped; the chunk width stays 128.  So is ``scene_live_counts``
+(accel.py:362): the JAX build needs live counts to size static shapes and to
+skip empty primitive kinds, and the pair expansion here needs neither.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ScreenBins", "LightBins", "build_screen_bins", "build_light_bins",
+    "build_light_records",
+]
+
+BIG_DEPTH = 1e17
+CH = 128         # candidates per chunk (the kernel stages one chunk at a time)
+
+
+class ScreenBins(NamedTuple):
+    sph_chunks: torch.Tensor  # (nb, nchunks, CH) int64 depth-sorted ids, -1 padded
+    sph_zmin: torch.Tensor    # (nb, nchunks) chunk min depths (BIG_DEPTH if empty)
+    tiles_x: int
+    tiles_y: int
+    tile_px: int
+
+
+class LightBins(NamedTuple):
+    ids: torch.Tensor     # (M,) sphere ids, by cell, then descending far key
+    offs: torch.Tensor    # (ncells,) int64 CSR starts
+    count: torch.Tensor   # (ncells,) int64
+    L: torch.Tensor       # (3,) light direction (the stored N-dot direction)
+    e1: torch.Tensor      # (3,) lateral basis
+    e2: torch.Tensor      # (3,)
+    org: torch.Tensor     # (2,) lateral origin (umin, vmin)
+    inv_cell: torch.Tensor  # () cells per unit length
+    grid: int
+
+
+def _expand_pairs(x0, y0, span_w, span_h, nx: int):
+    """Spans -> (bucket, item) pairs, one pair per covered bucket.
+
+    Items with an empty span contribute no pair wherever they sit in the
+    array (no offset clamp, so no fault C1)."""
+    sizes = span_w * span_h
+    n = sizes.shape[0]
+    item = torch.repeat_interleave(torch.arange(n, device=sizes.device), sizes)
+    offsets = torch.cumsum(sizes, 0) - sizes
+    local = torch.arange(item.shape[0], device=sizes.device) - offsets[item]
+    w = span_w[item]
+    bucket = (y0[item] + local // w) * nx + (x0[item] + local % w)
+    return bucket, item
+
+
+def _csr_sort(bucket, item, key, nbuckets: int):
+    """Sort pairs by bucket, then by ``key`` ascending (stable, so equal keys
+    keep item order).  Returns (bucket_s, item_s, key_s, count, start)."""
+    order = torch.argsort(key, stable=True)
+    order = order[torch.argsort(bucket[order], stable=True)]
+    bucket_s = bucket[order]
+    count = torch.bincount(bucket_s, minlength=nbuckets)
+    start = torch.cumsum(count, 0) - count
+    return bucket_s, item[order], key[order], count, start
+
+
+# ---------------------------------------------------------------------------
+# screen-space bins
+# ---------------------------------------------------------------------------
+
+
+def _screen_px_bounds(centers, radii, origin, right, up2, view, left, bottom,
+                      psx, psy, width: int, height: int, perspective: bool):
+    """Per-sphere conservative pixel bounds (px0, px1, py0, py1) and the
+    behind-camera flag (accel.py:195-228)."""
+    rel = centers - origin
+    xc = rel @ right
+    yc = rel @ up2
+    zc = rel @ view
+    r = radii
+    if perspective:
+        def extent(lat, dep):
+            unbounded = dep <= r
+            d2 = lat * lat + dep * dep
+            root = torch.sqrt(torch.clamp(d2 - r * r, min=1e-20))
+            denom = dep * dep - r * r
+            safe = torch.where(unbounded, torch.ones_like(denom), denom)
+            u1 = (lat * dep - r * root) / safe
+            u2 = (lat * dep + r * root) / safe
+            return u1, u2, unbounded
+
+        ux0, ux1, unb_x = extent(xc, zc)
+        uy0, uy1, unb_y = extent(yc, zc)
+        unb = unb_x | unb_y
+        zero = torch.zeros_like(ux0)
+        px0 = torch.where(unb, zero, (ux0 - left) / psx)
+        px1 = torch.where(unb, zero + float(width), (ux1 - left) / psx)
+        py0 = torch.where(unb, zero, (uy0 - bottom) / psy)
+        py1 = torch.where(unb, zero + float(height), (uy1 - bottom) / psy)
+        behind = zc <= -r
+    else:
+        px0 = (xc - r - left) / psx
+        px1 = (xc + r - left) / psx
+        py0 = (yc - r - bottom) / psy
+        py1 = (yc + r - bottom) / psy
+        behind = torch.zeros_like(xc, dtype=torch.bool)
+    return px0, px1, py0, py1, behind
+
+
+SPAN_PAD = 1.5   # px: 1-based sampling + 0.5px AA jitter
+
+
+def _screen_spans(centers, radii, origin, right, up2, view, left, bottom,
+                  psx, psy, width: int, height: int, tile_px: int,
+                  perspective: bool):
+    """Per-sphere tile span (tx0, ty0, span_w, span_h); span 0 when the
+    sphere is dead, behind the camera or off screen (accel.py:195)."""
+    px0, px1, py0, py1, behind = _screen_px_bounds(
+        centers, radii, origin, right, up2, view, left, bottom, psx, psy,
+        width, height, perspective)
+    pad = SPAN_PAD
+    ntx = (width - 1) // tile_px
+    nty = (height - 1) // tile_px
+
+    def tile_of(p, hi):
+        return torch.clamp(torch.floor(p / tile_px), 0, hi).to(torch.int64)
+
+    tx0 = tile_of(px0 - pad, ntx)
+    tx1 = tile_of(px1 + pad, ntx)
+    ty0 = tile_of(py0 - pad, nty)
+    ty1 = tile_of(py1 + pad, nty)
+    offscreen = ((px1 < -pad) | (px0 > width + pad)
+                 | (py1 < -pad) | (py0 > height + pad))
+    live = (radii > 0) & ~behind & ~offscreen
+    span_w = torch.where(live, tx1 - tx0 + 1, 0)
+    span_h = torch.where(live, ty1 - ty0 + 1, 0)
+    return tx0, ty0, span_w, span_h
+
+
+def _screen_setup(frame, width: int, height: int, dtype, device):
+    """Host-side screen basis, computed as the JAX build computes it."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    ipr = np.asarray(frame["iplaneright"], np_dtype)
+    ipu = np.asarray(frame["iplaneup"], np_dtype)
+    psx = float(np.linalg.norm(ipr))
+    psy = float(np.linalg.norm(ipu))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np_dtype), device=device)
+
+    return dict(
+        origin=t(frame["origin"]), right=t(ipr / psx), up2=t(ipu / psy),
+        view=t(frame["view"]), left=t(-0.5 * psx * width),
+        bottom=t(-0.5 * psy * height), psx=t(psx), psy=t(psy),
+    )
+
+
+def build_screen_bins(scene, frame, width: int, height: int,
+                      tile_px: int = 16) -> ScreenBins:
+    """Per-tile front-to-back candidate chunks and their min depths."""
+    centers, radii = scene.sph_center, scene.sph_radius
+    g = _screen_setup(frame, width, height, centers.dtype, centers.device)
+    tiles_x = -(-width // tile_px)
+    tiles_y = -(-height // tile_px)
+    nb = tiles_x * tiles_y
+    tx0, ty0, sw, sh = _screen_spans(
+        centers, radii, g["origin"], g["right"], g["up2"], g["view"],
+        g["left"], g["bottom"], g["psx"], g["psy"],
+        width, height, tile_px, bool(frame["perspective"]),
+    )
+    bucket, item = _expand_pairs(tx0, ty0, sw, sh, tiles_x)
+    # conservative front depth (zc - r) orders each tile's candidates
+    depth = (centers @ g["view"]) - radii - (g["origin"] @ g["view"])
+    bucket_s, item_s, d_s, count, start = _csr_sort(
+        bucket, item, depth[item], nb)
+    kmax = int(count.max()) if nb else 0
+    nchunks = max(1, -(-kmax // CH))
+    local = torch.arange(bucket_s.shape[0], device=centers.device) - start[bucket_s]
+    cand = torch.full((nb, nchunks * CH), -1, dtype=torch.int64,
+                      device=centers.device)
+    dpad = torch.full((nb, nchunks * CH), BIG_DEPTH, dtype=centers.dtype,
+                      device=centers.device)
+    cand[bucket_s, local] = item_s
+    dpad[bucket_s, local] = d_s
+    zmin = dpad[:, ::CH].contiguous()
+    return ScreenBins(cand.view(nb, nchunks, CH), zmin, tiles_x, tiles_y,
+                      tile_px)
+
+
+# ---------------------------------------------------------------------------
+# light-space bins and records
+# ---------------------------------------------------------------------------
+
+
+def _light_frame(centers, radii, L):
+    """Lateral basis (e1, e2) and the live spheres' lateral bounds."""
+    if bool(L[0].abs() < 0.9):
+        a = torch.tensor([1.0, 0.0, 0.0], dtype=L.dtype, device=L.device)
+    else:
+        a = torch.tensor([0.0, 1.0, 0.0], dtype=L.dtype, device=L.device)
+    e1 = torch.linalg.cross(L, a)
+    e1 = e1 / torch.linalg.norm(e1)
+    e2 = torch.linalg.cross(L, e1)
+    u = centers @ e1
+    v = centers @ e2
+    live = radii > 0
+    big = torch.tensor(1e30, dtype=centers.dtype, device=centers.device)
+    umin = torch.where(live, u - radii, big).min()
+    vmin = torch.where(live, v - radii, big).min()
+    umax = torch.where(live, u + radii, -big).max()
+    vmax = torch.where(live, v + radii, -big).max()
+    extent = torch.clamp(torch.maximum(umax - umin, vmax - vmin), min=1e-6)
+    return e1, e2, umin, vmin, extent
+
+
+def _light_spans(centers, radii, e1, e2, umin, vmin, inv_cell, grid: int):
+    u = centers @ e1
+    v = centers @ e2
+
+    def cell_of(p):
+        return torch.clamp(torch.floor(p * inv_cell), 0, grid - 1).to(torch.int64)
+
+    x0 = cell_of(u - radii - umin)
+    x1 = cell_of(u + radii - umin)
+    y0 = cell_of(v - radii - vmin)
+    y1 = cell_of(v + radii - vmin)
+    live = radii > 0
+    return x0, y0, torch.where(live, x1 - x0 + 1, 0), torch.where(live, y1 - y0 + 1, 0)
+
+
+def build_light_bins(scene, light_dir, grid: int = 32) -> LightBins:
+    """Light-grid cells -> sphere ids sorted by descending far key c.L + r."""
+    centers, radii = scene.sph_center, scene.sph_radius
+    np_dtype = torch.empty((), dtype=centers.dtype).numpy().dtype
+    L = torch.as_tensor(np.asarray(light_dir, np_dtype), device=centers.device)
+    e1, e2, umin, vmin, extent = _light_frame(centers, radii, L)
+    inv_cell = grid / extent
+    x0, y0, sw, sh = _light_spans(centers, radii, e1, e2, umin, vmin,
+                                  inv_cell, grid)
+    cell, item = _expand_pairs(x0, y0, sw, sh, grid)
+    key = (centers @ L) + radii
+    _, ids, _, count, offs = _csr_sort(cell, item, -key[item], grid * grid)
+    return LightBins(ids, offs, count, L, e1, e2, torch.stack([umin, vmin]),
+                     inv_cell, grid)
+
+
+def build_light_records(lb: LightBins, scene):
+    """CSR shadow records for the kernel's sweep.
+
+    Returns (lrec (M, 8) f32 rows [cu, cv, ck, r, key, alpha, 0, 0],
+    offs (ncells,) i32, count (ncells,) i32, lkmax (ncells,) f32), where
+    (cu, cv) are lateral light-space coordinates, ck = c.L and
+    key = ck + r; rows run by descending key within each cell, and lkmax is
+    each cell's largest key (-BIG_DEPTH for an empty cell)."""
+    # project every sphere, then gather: the same arithmetic as the bins'
+    # sort key, so the stored keys are exactly non-increasing in each cell
+    centers, ids = scene.sph_center, lb.ids
+    cu = (centers @ lb.e1)[ids] - lb.org[0]
+    cv = (centers @ lb.e2)[ids] - lb.org[1]
+    ck = (centers @ lb.L)[ids]
+    r = scene.sph_radius[ids]
+    key = ck + r
+    zero = torch.zeros_like(cu)
+    lrec = torch.stack(
+        [cu, cv, ck, r, key, scene.sph_color[ids, 3], zero, zero], dim=1
+    ).to(torch.float32).contiguous()
+    first = torch.clamp(lb.offs, max=max(lrec.shape[0] - 1, 0))
+    lkmax = torch.full((lb.count.shape[0],), -BIG_DEPTH, dtype=torch.float32,
+                       device=lrec.device)
+    if lrec.shape[0]:
+        lkmax = torch.where(lb.count > 0, lrec[first, 4], lkmax)
+    return (lrec, lb.offs.to(torch.int32), lb.count.to(torch.int32), lkmax)

@@ -1,0 +1,446 @@
+"""The fused render pass: raygen, sphere closest hit, shading, shadows, AA mean.
+
+Port of the sphere slice of ``mdapy_tpu/render/megakernel.py`` —
+``build_mega_params`` (:81), ``_hash_jitter`` (:110), the Pallas kernel
+``_mega_kernel`` (:156) and its host wrapper ``render_image_mega`` (:1852) —
+for one directional light with opaque spheres (ROADMAP B1a + B1b).
+
+Per 16x16 screen tile and per AA sample the pass:
+  * generates the ray (perspective or orthographic), jittered by a 32-bit
+    integer hash for samples s > 0, and clips it to the scene AABB (tcap);
+  * walks the tile's depth-sorted 128-wide candidate chunks front to back
+    and stops at the first chunk whose ``zmin`` is not below the tile's
+    max over rays of min(best_t, tcap);
+  * shades the winner: normal, facing flip, miss, Lambert n.L;
+  * for a lit point, walks its light-grid cell's records in descending
+    far-key order and stops at the first occluder, or once key <= tau + eps
+    (no later record can occlude);
+  * writes the AA mean as (tiles, 3*256) rows [R | G | B].
+
+``mega_render`` dispatches on the tensors' device: CUDA tensors go to the
+hand kernel (``csrc/mega_render.cu``), CPU tensors to ``mega_render_plain``,
+the plain torch version of the same computation.  The AO sky lights (B1c),
+cylinders and rings (B1d), transparency peeling (B1e) and the banded variant
+(B1f) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = [
+    "build_mega_params", "hash_jitter", "mega_render", "mega_render_plain",
+    "mega_render_cuda", "render_image_mega", "launches", "reset_launches",
+]
+
+BIG = 1e18
+BIG_DEPTH = 1e17
+MINCONTRIB = 1.0 / 512.0
+TILE_PX = 16
+P = TILE_PX * TILE_PX      # pixels per tile = threads per kernel block
+CH = 128                   # candidates per chunk
+# element budget of one (tiles, rays, CH) temporary in the plain version
+_PLAIN_ELEMS = 1 << 26
+_SHADOW_STEP = 64          # records per step of the plain shadow walk
+
+# hand-kernel launches since the last reset_launches()
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def build_mega_params(frame, lb, aabb_lo, aabb_hi, cfg) -> np.ndarray:
+    """Pack the per-frame scalars into one (64,) f32 vector (same slots as
+    the JAX package's)."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return np.asarray(a, np.float32)
+
+    p = np.zeros(64, np.float32)
+    p[0:3] = host(frame["origin"])
+    p[3:6] = host(frame["lowleft"])
+    p[6:9] = host(frame["iplaneright"])
+    p[9:12] = host(frame["iplaneup"])
+    p[12:15] = host(frame["view"])
+    p[15:18] = host(frame["light_dir"])
+    if lb is not None:
+        p[18:21] = host(lb.e1)
+        p[21:24] = host(lb.e2)
+        p[24:26] = host(lb.org)
+        p[26] = float(lb.inv_cell)
+    p[27] = float(cfg.direct_light_intensity)
+    p[28:31] = host(cfg.background)
+    p[31:34] = host(aabb_lo)
+    p[34:37] = host(aabb_hi)
+    # pixel-center offset: matches the XLA paths' dynamic_sched convention
+    dynamic_sched = cfg.ao_enabled or (cfg.aa_enabled and cfg.aa_samples > 4)
+    p[37] = 0.0 if dynamic_sched else 1.0
+    p[38] = 0.3  # Tachyon material ambient (tachyon_render.h makeTex)
+    if cfg.ao_enabled:
+        p[27] *= 0.2   # rt_rescale_lights(0.2) parity (tachyon_render.h:199)
+    return p
+
+
+def hash_jitter(tile, s, seed, pix):
+    """Deterministic per-(tile, sample, pixel) jitter in [-0.5, 0.5).
+
+    The JAX package's int32 avalanche hash, bit for bit: int64 arithmetic
+    masked to 32 bits stands in for wrapping int32 multiplies and logical
+    right shifts."""
+    def mul(a, c):
+        # (a * c) mod 2**32 for 0 <= a < 2**32 without int64 overflow
+        return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & m
+
+    m = 0xFFFFFFFF
+    h0 = (mul(tile & m, 0x9E3779B9) + mul(s & m, 0xC2B2AE35)
+          + mul(seed & m, 374761393)) & m
+    v = (mul(pix & m, 0x85EBCA6B) + h0) & m
+    v = v ^ (v >> 16)
+    v = mul(v, 2127912214)
+    v = v ^ (v >> 15)
+    v = mul(v, 0xC2B2AE35)
+    v = v ^ (v >> 16)
+    jx = (v & 0xFFFF).to(torch.float32) * (1.0 / 65536.0) - 0.5
+    jy = ((v >> 16) & 0xFFFF).to(torch.float32) * (1.0 / 65536.0) - 0.5
+    return jx, jy
+
+
+# ---------------------------------------------------------------------------
+# plain torch version
+# ---------------------------------------------------------------------------
+
+
+def _raygen(p, tiles, S: int, seed: int, tiles_x: int, perspective: bool):
+    """Rays (T, S*P) in the kernel's lane order s*P + pixel."""
+    dev = p.device
+    lane = torch.arange(S * P, device=dev, dtype=torch.int64)
+    pixl = lane % P
+    s_vec = lane // P
+    t = tiles[:, None]
+    jx, jy = hash_jitter(t, s_vec[None], int(seed), pixl[None])
+    nz = (s_vec > 0).to(torch.float32)
+    sub_x = (pixl % TILE_PX).to(torch.float32)
+    sub_y = (pixl // TILE_PX).to(torch.float32)
+    txf = (t % tiles_x).to(torch.float32)
+    tyf = (t // tiles_x).to(torch.float32)
+    off = p[37]
+    x = txf * TILE_PX + sub_x + off + jx * nz
+    y = tyf * TILE_PX + sub_y + off + jy * nz
+    dx = p[3] + x * p[6] + y * p[9]
+    dy = p[4] + x * p[7] + y * p[10]
+    dz = p[5] + x * p[8] + y * p[11]
+    if perspective:
+        inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
+        d = (dx * inv, dy * inv, dz * inv)
+        o = tuple(torch.full_like(dx, 0.0) + p[i] for i in range(3))
+    else:
+        o = (dx, dy, dz)
+        d = tuple(torch.full_like(dx, 0.0) + p[12 + i] for i in range(3))
+
+    def axis_exit(o1, d1, lo1, hi1):
+        invd = 1.0 / torch.where(d1.abs() > 1e-30, d1, torch.full_like(d1, 1e-30))
+        t0 = (lo1 - o1) * invd
+        t1 = (hi1 - o1) * invd
+        return torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+    n0, f0 = axis_exit(o[0], d[0], p[31], p[34])
+    n1, f1 = axis_exit(o[1], d[1], p[32], p[35])
+    n2, f2 = axis_exit(o[2], d[2], p[33], p[36])
+    tnear = torch.maximum(torch.maximum(n0, n1), n2)
+    tfar = torch.minimum(torch.minimum(f0, f1), f2)
+    tcap = torch.where(tfar >= torch.clamp(tnear, min=0.0), tfar,
+                       torch.full_like(tfar, -BIG))
+    return o, d, tcap
+
+
+def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
+                 perspective: bool):
+    """Front-to-back chunk walk with the per-tile zmin early exit.
+
+    Returns best t (T, R) and the winner's flat slot c*CH + j (-1 on miss);
+    ties keep the lowest slot of the earliest chunk."""
+    T, R = tcap.shape
+    nchunks = chunk_data.shape[1]
+    dev = tcap.device
+    bt = torch.full((T, R), BIG, dtype=torch.float32, device=dev)
+    bidx = torch.full((T, R), -1, dtype=torch.int64, device=dev)
+    needed = tcap.max(dim=1).values
+    slots = torch.arange(CH, device=dev)
+    for c in range(nchunks):
+        act = torch.nonzero(zmin[tiles, c] < needed).flatten()
+        if act.numel() == 0:
+            break
+        rec = chunk_data[tiles[act], c]                 # (A, 8, CH)
+        cx, cy, cz, r = (rec[:, i, None, :] for i in range(4))
+        dx, dy, dz = (v[act, :, None] for v in d)
+        if perspective:
+            ocx = o[0][0, 0] - cx
+            ocy = o[1][0, 0] - cy
+            ocz = o[2][0, 0] - cz
+        else:
+            ocx = o[0][act, :, None] - cx
+            ocy = o[1][act, :, None] - cy
+            ocz = o[2][act, :, None] - cz
+        b = ocx * dx + ocy * dy + ocz * dz
+        ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = b * b - ccb
+        ok = (disc >= 0.0) & (r > 0.0)
+        sq = torch.sqrt(torch.where(ok, disc, 0.0))
+        t1 = -b - sq
+        t2 = sq - b
+        big = torch.full_like(t1, BIG)
+        t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, big))
+        t = torch.where(ok, t, big)
+        tmin = t.min(dim=2).values
+        # exclusive winner: the lowest slot among equal t (adjacent spheres
+        # can tie at seam pixels)
+        jmin = torch.where(t == tmin[..., None], slots, CH).min(dim=2).values
+        bt_a = bt[act]
+        better = tmin < bt_a
+        bt_a = torch.where(better, tmin, bt_a)
+        bt[act] = bt_a
+        bidx[act] = torch.where(better, c * CH + jmin, bidx[act])
+        needed[act] = torch.minimum(bt_a, tcap[act]).max(dim=1).values
+    return bt, bidx
+
+
+def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
+    """1.0 where some record of the ray's cell occludes it, else 0.0.
+
+    Walks each ray's descending-key records in steps of _SHADOW_STEP; a ray
+    retires at its first occluder or once key <= tau + eps."""
+    blocked = torch.zeros_like(tau)
+    tau_eps = tau + eps
+    cnt = lcnt[cell].to(torch.int64)
+    off = loffs[cell].to(torch.int64)
+    active = torch.nonzero((cnt > 0) & (lkmax[cell] > tau_eps)).flatten()
+    k0 = 0
+    step = torch.arange(_SHADOW_STEP, device=tau.device)
+    while active.numel():
+        kk = k0 + step[None, :]
+        valid = kk < cnt[active, None]
+        idx = off[active, None] + torch.minimum(kk, cnt[active, None] - 1)
+        rec = lrec[idx]                                   # (A, W, 8)
+        stop = ~valid | (rec[..., 4] <= tau_eps[active, None])
+        stop = torch.cumsum(stop.to(torch.int32), dim=1) > 0
+        du = rec[..., 0] - u[active, None]
+        dv = rec[..., 1] - v[active, None]
+        sr = rec[..., 3]
+        s2 = sr * sr - (du * du + dv * dv)
+        q = tau_eps[active, None] - rec[..., 2]
+        occ = (s2 > 0.0) & (sr > 0.0) & ((q < 0.0) | (s2 > q * q)) & ~stop
+        hit = occ.any(dim=1)
+        blocked[active[hit]] = 1.0
+        active = active[~hit & ~stop[:, -1]]
+        k0 += _SHADOW_STEP
+    return blocked
+
+
+def _render_batch(chunk_data, zmin, lrec, loffs, lcnt, lkmax, p, tiles, *,
+                  S, seed, tiles_x, grid_n, eps, perspective, shadows, inv_s):
+    o, d, tcap = _raygen(p, tiles, S, seed, tiles_x, perspective)
+    bt, bidx = _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps,
+                            perspective)
+    T, R = bt.shape
+    hit = bidx >= 0
+    c = bidx.clamp(min=0) // CH
+    j = bidx.clamp(min=0) % CH
+    rec = chunk_data[tiles[:, None], c, :, j]               # (T, R, 8)
+    rec = torch.where(hit[..., None], rec, 0.0)
+    missed = (bt >= BIG_DEPTH) | (rec[..., 3] <= 0.0)
+    tsafe = torch.where(missed, 0.0, bt)
+    h = [o[i] + tsafe * d[i] for i in range(3)]
+    n = [h[i] - rec[..., i] for i in range(3)]
+    inv = torch.rsqrt(torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2],
+                                  min=1e-30))
+    n = [x * inv for x in n]
+    facing = n[0] * d[0] + n[1] * d[1] + n[2] * d[2]
+    flip = torch.where(facing > 0.0, -1.0, 1.0)
+    n = [x * flip for x in n]
+    inten = n[0] * p[15] + n[1] * p[16] + n[2] * p[17]
+    litb = (inten > MINCONTRIB) & ~missed
+    lit = litb.to(torch.float32)
+    filt = torch.ones_like(inten)
+    if shadows:
+        sel = torch.nonzero(litb.flatten()).flatten()
+        hx, hy, hz = (x.flatten()[sel] for x in h)
+        u = hx * p[18] + hy * p[19] + hz * p[20] - p[24]
+        v = hx * p[21] + hy * p[22] + hz * p[23] - p[25]
+        tau = hx * p[15] + hy * p[16] + hz * p[17]
+        gx = torch.clamp(torch.floor(u * p[26]), 0, grid_n - 1)
+        gy = torch.clamp(torch.floor(v * p[26]), 0, grid_n - 1)
+        cell = (gy * grid_n + gx).to(torch.int64)
+        blocked = _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell,
+                                  eps)
+        filt = filt.flatten().index_put((sel,), 1.0 - blocked).view(T, R)
+    sh = lit * inten * p[27] * filt
+    shade = 0.8 * sh + p[38]
+    out = []
+    for ch in range(3):
+        col = torch.where(missed, p[28 + ch], rec[..., 4 + ch] * shade)
+        col = col.view(T, S, P)
+        acc = torch.zeros((T, P), dtype=torch.float32, device=col.device)
+        for s in range(S):
+            acc = acc + col[:, s]
+        out.append(acc * inv_s)
+    out = torch.cat(out, dim=1)                              # (T, 3*P)
+    # tiles with no candidate at all are background, as the kernel writes them
+    dead = ~(zmin[tiles, 0] < BIG_DEPTH)
+    bg = torch.repeat_interleave(p[28:31], P)
+    return torch.where(dead[:, None], bg[None, :], out)
+
+
+def _tile_range(tiles, nb: int):
+    lo, hi = (0, nb) if tiles is None else (int(tiles[0]), int(tiles[1]))
+    if not 0 <= lo <= hi <= nb:
+        raise ValueError(f"tile range {tiles} outside [0, {nb}]")
+    return lo, hi
+
+
+def mega_render_plain(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
+                      *, S: int, tiles_x: int, grid_n: int, eps: float,
+                      perspective: bool, shadows: bool,
+                      tiles=None) -> torch.Tensor:
+    """Plain torch version of the kernel: (ntiles, 3*256) f32 [R|G|B] rows
+    for the tiles in ``tiles`` = (first, end), all tiles by default.
+
+    Runs on the inputs' device; tiles go through in batches that keep each
+    (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
+    nb, nchunks, _, ch = chunk_data.shape
+    lo, hi = _tile_range(tiles, nb)
+    dev = chunk_data.device
+    p = torch.as_tensor(params, dtype=torch.float32, device=dev)
+    inv_s = float(np.float32(1.0 / S))
+    batch = max(1, _PLAIN_ELEMS // (S * P * ch))
+    out = torch.empty((hi - lo, 3 * P), dtype=torch.float32, device=dev)
+    for t0 in range(lo, hi, batch):
+        tiles = torch.arange(t0, min(hi, t0 + batch), device=dev)
+        out[t0 - lo:t0 - lo + tiles.shape[0]] = _render_batch(
+            chunk_data, zmin, lrec, loffs, lcnt, lkmax, p, tiles,
+            S=S, seed=seed, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
+            perspective=perspective, shadows=shadows, inv_s=inv_s,
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hand CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _check(t, name, dtype, ndim, device):
+    if t.dtype != dtype or t.dim() != ndim or t.device != device:
+        raise ValueError(
+            f"{name}: expected {ndim}-d {dtype} on {device}, got "
+            f"{t.dim()}-d {t.dtype} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def mega_render_cuda(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
+                     *, S: int, tiles_x: int, grid_n: int, eps: float,
+                     perspective: bool, shadows: bool,
+                     tiles=None) -> torch.Tensor:
+    """Launch the hand kernel on CUDA tensors: (ntiles, 3*256) f32 rows
+    for the tiles in ``tiles`` = (first, end), all tiles by default."""
+    from ._build import load_mega_render
+
+    global launches
+    dev = chunk_data.device
+    if dev.type != "cuda":
+        raise ValueError(f"mega_render_cuda needs CUDA tensors, got {dev}")
+    nb, nchunks, rows, ch = chunk_data.shape
+    if rows != 8 or ch != CH:
+        raise ValueError(f"chunk_data must be (nb, nchunks, 8, {CH}), got "
+                         f"{tuple(chunk_data.shape)}")
+    if S < 1:
+        raise ValueError(f"S must be >= 1, got {S}")
+    f32, i32 = torch.float32, torch.int32
+    _check(chunk_data, "chunk_data", f32, 4, dev)
+    _check(zmin, "zmin", f32, 2, dev)
+    if tuple(zmin.shape) != (nb, nchunks):
+        raise ValueError(f"zmin must be {(nb, nchunks)}, got {tuple(zmin.shape)}")
+    p = torch.as_tensor(params, dtype=f32, device=dev).contiguous()
+    if p.shape != (64,):
+        raise ValueError(f"params must be (64,), got {tuple(p.shape)}")
+    if shadows:
+        ncells = grid_n * grid_n
+        _check(lrec, "lrec", f32, 2, dev)
+        if lrec.shape[1] != 8:
+            raise ValueError(f"lrec must be (M, 8), got {tuple(lrec.shape)}")
+        for t, name, dt in ((loffs, "loffs", i32), (lcnt, "lcnt", i32),
+                            (lkmax, "lkmax", f32)):
+            _check(t, name, dt, 1, dev)
+            if t.shape[0] != ncells:
+                raise ValueError(f"{name} must have {ncells} cells, got {t.shape[0]}")
+        if lrec.shape[0] == 0:
+            lrec = torch.zeros((1, 8), dtype=f32, device=dev)
+    else:
+        # the kernel reads no shadow input; hand it valid dummy pointers
+        lrec = torch.zeros((1, 8), dtype=f32, device=dev)
+        loffs = lcnt = torch.zeros(1, dtype=i32, device=dev)
+        lkmax = torch.zeros(1, dtype=f32, device=dev)
+    lo, hi = _tile_range(tiles, nb)
+    out = torch.empty((hi - lo, 3 * P), dtype=f32, device=dev)
+    if hi == lo:
+        return out
+    lib = load_mega_render()
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        rc = lib.mega_render_launch(
+            ptr(p.data_ptr()), ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
+            ptr(lrec.data_ptr()), ptr(loffs.data_ptr()), ptr(lcnt.data_ptr()),
+            ptr(lkmax.data_ptr()), ptr(out.data_ptr()),
+            hi - lo, lo, nchunks, tiles_x, S, int(seed) & 0xFFFFFFFF, grid_n,
+            eps, float(np.float32(1.0 / S)), int(bool(perspective)),
+            int(bool(shadows)), ptr(torch.cuda.current_stream(dev).cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"mega_render kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def mega_render(chunk_data, *args, **kwargs) -> torch.Tensor:
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if chunk_data.device.type == "cuda":
+        return mega_render_cuda(chunk_data, *args, **kwargs)
+    if chunk_data.device.type == "cpu":
+        return mega_render_plain(chunk_data, *args, **kwargs)
+    raise ValueError(f"no render path for device {chunk_data.device}")
+
+
+def render_image_mega(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params,
+                      seed, *, S: int, width: int, height: int, tiles_x: int,
+                      tiles_y: int, grid_n: int, eps: float,
+                      perspective: bool, shadows: bool,
+                      quantized: bool = False) -> torch.Tensor:
+    """Full-frame render -> (height, width, 3) f32 RGB, or uint8 (rounded)
+    when ``quantized`` (the device serving path).
+
+    ``chunk_data`` / ``zmin`` come from ``gather_chunk_data`` and
+    ``build_screen_bins``; ``lrec, loffs, lcnt, lkmax`` from
+    ``build_light_records`` (ignored when ``shadows`` is False)."""
+    nb = chunk_data.shape[0]
+    if nb != tiles_x * tiles_y:
+        raise ValueError(f"{nb} tiles given for a {tiles_x}x{tiles_y} grid")
+    out = mega_render(
+        chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
+        S=S, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
+        perspective=perspective, shadows=shadows,
+    )
+    img = out.view(tiles_y, tiles_x, 3, TILE_PX, TILE_PX)
+    img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * TILE_PX,
+                                              tiles_x * TILE_PX, 3)
+    img = torch.flip(img[:height, :width], dims=[0])
+    if quantized:
+        img = torch.clamp(torch.round(img * 255.0), 0.0, 255.0).to(torch.uint8)
+    return img

@@ -1,0 +1,212 @@
+"""Port parity: the render kernel slice and the whole render slice.
+
+The port's kernel path runs here as its plain torch version (CPU tensors);
+the hand CUDA kernel is held against that plain version on the card by
+``chip_smoke.py``.  The JAX reference runs the Pallas megakernel in
+interpret mode, as ``tests/test_render_mega.py`` does.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import mdapy_tpu
+import mdapy_tpu_torch
+from mdapy_tpu.render import megakernel as jmega
+from mdapy_tpu.render.accel import (
+    build_light_bins, build_light_records, build_screen_bins,
+)
+from mdapy_tpu.render.camera import camera_frame, preset_camera
+from mdapy_tpu.render.pallas_kernels import gather_chunk_data
+from mdapy_tpu.render.scene import build_scene
+from mdapy_tpu.render.tracer import RenderConfig
+from mdapy_tpu_torch.render import megakernel as tmega
+from mdapy_tpu_torch.render.convert import (
+    light_records_from_numpy, screen_bins_from_numpy,
+)
+
+W, H = 96, 80
+GRID = 48
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fcc_scene(n=3):
+    a = 3.615
+    frac = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.mgrid[0:n, 0:n, 0:n].reshape(3, -1).T
+    pos = (frac[None] + cells[:, None]).reshape(-1, 3) * a
+    rng = np.random.default_rng(3)
+    colors = np.c_[rng.uniform(0.2, 1.0, (len(pos), 3)), np.ones(len(pos))]
+    radii = np.full(len(pos), 1.28, np.float32)
+    return pos, colors.astype(np.float32), radii
+
+
+def test_hash_jitter_bit_exact():
+    rng = np.random.default_rng(0)
+    tile = rng.integers(0, 1 << 20, 4096)
+    s = rng.integers(0, 16, 4096)
+    pix = rng.integers(0, 256, 4096)
+    for seed in (0, 7, -3, 2**31 - 1):
+        jx, jy = jmega._hash_jitter(
+            jnp.asarray(tile, jnp.int32), jnp.asarray(s, jnp.int32),
+            jnp.int32(seed), jnp.asarray(pix, jnp.int32))
+        tx, ty = tmega.hash_jitter(torch.as_tensor(tile), torch.as_tensor(s),
+                                   seed, torch.as_tensor(pix))
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+@pytest.mark.parametrize("preset,aa,shadows", [
+    ("perspective", 0, True),
+    ("perspective", 0, False),
+    ("top", 0, True),
+    ("top", 0, False),
+    ("perspective", 2, True),      # AA on: S = 3, jitter hash bit-exact
+])
+def test_kernel_slice_matches_interpret(preset, aa, shadows):
+    """The JAX accel structures, carried over by convert.py, go through the
+    JAX megakernel (interpret mode) and the port's kernel path."""
+    pos, colors, radii = _fcc_scene()
+    cam = preset_camera(preset, pos, max_radius=float(radii.max()))
+    scene = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
+                         build_scene(pos, colors, radii, dtype=np.float32))
+    frame = camera_frame(cam, W, H)
+    persp = bool(frame["perspective"])
+    cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_samples=0,
+                       ao_enabled=False, shadows_enabled=shadows)
+    bins = build_screen_bins(scene, frame, W, H)
+    lb = build_light_bins(scene, np.asarray(frame["light_dir"], np.float32),
+                          grid=GRID)
+    cd = gather_chunk_data(bins.sph_chunks, scene.sph_center,
+                           scene.sph_radius, scene.sph_color)
+    lrec = build_light_records(lb, scene)
+    lo = np.asarray(jnp.min(scene.sph_center - scene.sph_radius[:, None], 0))
+    hi = np.asarray(jnp.max(scene.sph_center + scene.sph_radius[:, None], 0))
+    params = jmega.build_mega_params(frame, lb, lo, hi, cfg)
+    kw = dict(S=aa + 1, width=W, height=H, tiles_x=bins.tiles_x,
+              tiles_y=bins.tiles_y, grid_n=GRID, eps=cfg.eps,
+              perspective=persp, shadows=shadows)
+    jl = lrec if shadows else (None, None, None, None)
+    ref = np.asarray(jmega.render_image_mega(
+        cd, bins.sph_zmin, jl[0], jl[1], jl[2], params, 0, lkmax=jl[3],
+        interpret=True, **kw))
+
+    tb = screen_bins_from_numpy(bins.sph_chunks, bins.sph_zmin, bins.tiles_x,
+                                bins.tiles_y)
+    tl = light_records_from_numpy(*lrec)
+    before = tmega.launches
+    img = tmega.render_image_mega(
+        torch.as_tensor(np.array(cd)), tb.sph_zmin, *tl, params, 0, **kw)
+    assert tmega.launches == before          # CPU tensors: the plain version
+    assert img.shape == (H, W, 3) and img.dtype == torch.float32
+    d = np.abs(img.numpy() - ref)
+    assert ref.std() > 0.05
+    # fp-order tangency ties may flip a pixel or two (the JAX package's bound)
+    assert int((d.max(axis=2) > 1e-3).sum()) <= 2
+    assert d.mean() < 1e-4
+
+    q = tmega.render_image_mega(
+        torch.as_tensor(np.array(cd)), tb.sph_zmin, *tl, params, 0,
+        quantized=True, **kw)
+    assert q.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        q.numpy(), np.clip(np.round(img.numpy() * 255.0), 0, 255))
+
+
+def test_render_matches_jax_renderer():
+    """The whole slice, port (backend="cpu", f32, plain kernel) against the
+    JAX package (backend="cpu": float64 and its XLA tiled tracer).  AA is off
+    so both trace the same rays; f32 vs f64 and two tracers can flip a
+    tangency pixel, and the truncating quantizer may move a value across an
+    integer, so allow 4 pixels differing by more than 1."""
+    pos, colors, radii = _fcc_scene()
+    cam = mdapy_tpu.preset_camera("perspective", pos, max_radius=1.28)
+    kw = dict(camera=cam, width=W, height=H)
+    jren = mdapy_tpu.TachyonRender(backend="cpu", ao=False, antialiasing=False)
+    ref = jren.render(pos, colors, radii, **kw)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False,
+                                        antialiasing=False)
+    img = ren.render(pos, colors, radii, **kw)
+    assert img.shape == ref.shape == (H, W, 4) and img.dtype == np.uint8
+    d = np.abs(img.astype(np.int32) - ref.astype(np.int32)).max(axis=2)
+    assert img[..., :3].std() > 1
+    assert int((d > 1).sum()) <= 4
+    # a repeated frame reuses the cached scene and accel structures, whether
+    # it passes the same arrays or equal copies; moved atoms rebuild
+    accel, key = ren._accel, ren._scene_key
+    np.testing.assert_array_equal(ren.render(pos, colors, radii, **kw), img)
+    np.testing.assert_array_equal(
+        ren.render(pos.copy(), colors.copy(), radii.copy(), **kw), img)
+    assert ren._accel is accel and ren._scene_key == key
+    moved = ren.render(pos + 0.7, colors, radii, **kw)
+    assert ren._scene_key != key and not np.array_equal(moved, img)
+    dev = ren.render(pos, colors, radii, device_output=True, **kw)
+    assert dev.dtype == torch.uint8 and dev.shape == (H, W, 3)
+    # transparent background: alpha 0 where the pixel shows the background
+    ta = ren.render(pos, colors, radii, transparent=True, **kw)[..., 3]
+    ja = jren.render(pos, colors, radii, transparent=True, **kw)[..., 3]
+    assert 0 < int((ta == 0).sum()) < H * W
+    assert int((ta != ja).sum()) <= 4
+
+
+def test_unported_options_raise(monkeypatch):
+    pos, colors, radii = _fcc_scene(2)
+    with pytest.raises(NotImplementedError, match="B1c"):
+        mdapy_tpu_torch.TachyonRender(backend="cpu", ao=True)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    edges = np.zeros((1, 2, 3))
+    edges[0, 1] = 1.0
+    with pytest.raises(NotImplementedError, match="B1d"):
+        ren.render(pos, colors, radii, bond_edges=edges, width=32, height=32)
+    with pytest.raises(NotImplementedError, match="B1d"):
+        ren.render(pos, colors, radii, box_edges=edges, width=32, height=32)
+    half = colors.copy()
+    half[0, 3] = 0.5
+    with pytest.raises(NotImplementedError, match="B1e"):
+        ren.render(pos, half, radii, width=32, height=32)
+    from mdapy_tpu_torch.render import render as trender
+
+    monkeypatch.setattr(trender, "RECORD_BUDGET_BYTES", 1024)
+    with pytest.raises(NotImplementedError, match="B1f"):
+        ren.render(pos, colors, radii, width=32, height=32)
+
+
+def test_cuda_backend_refuses_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mdapy_tpu_torch.TachyonRender(backend="cuda", ao=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmega.mega_render_cuda(
+            torch.zeros((1, 1, 8, 128)), torch.zeros((1, 1)), None, None,
+            None, None, np.zeros(64, np.float32), 0, S=1, tiles_x=1,
+            grid_n=1, eps=4e-4, perspective=True, shadows=False)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "import mdapy_tpu_torch as m\n"
+        "a = 3.615\n"
+        "f = np.array([[0,0,0],[.5,.5,0],[.5,0,.5],[0,.5,.5]])\n"
+        "c = np.mgrid[0:2,0:2,0:2].reshape(3,-1).T\n"
+        "pos = (f[None] + c[:, None]).reshape(-1, 3) * a\n"
+        "col = np.tile(np.array([[.78,.5,.2,1.]], np.float32), (len(pos), 1))\n"
+        "rad = np.full(len(pos), 1.28, np.float32)\n"
+        "img = m.TachyonRender(backend='cpu', ao=False).render("
+        "pos, col, rad, width=48, height=32)\n"
+        "assert len(pos) == 32 and img.shape == (32, 48, 4) and img.std() > 1\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
