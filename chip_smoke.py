@@ -12,16 +12,29 @@ Phases (any failure exits non-zero before the last line is printed):
 2. Kernel against its plain torch version, on the same CUDA tensors, on a
    2,048-atom FCC scene at 320x240: (a) perspective, S = 3, shadows;
    (b) orthographic ("top"), S = 1, shadows; (c) perspective, S = 1, no
-   shadows.  At most 4 pixels may differ by more than 1e-3 in a channel, and
-   the mean difference stays below 1e-4.
-3. The main path at full size: the 1,000,188-atom FCC block (a = 3.615,
-   r = 1.28), the "perspective" preset camera, 1920x1080, AA 12 (13 samples)
-   with primary-light shadows, through ``TachyonRender(backend="cuda",
-   ao=False).render(..., device_output=True)``.  Checks the image and that
-   the kernel was launched; times the first frame (scene and accel build
-   included) and 5 warm frames; times each layer; compares the kernel with
-   its plain version on the whole frame and times both over a band of the
-   frame's tile rows.
+   shadows; and with the fast-AO sky lights: (d) perspective, S = 3,
+   shadows, ao_samples = 12 (13 lights); (e) orthographic, S = 1, no
+   primary shadows (its empty CSR), ao_samples = 4.  At most 4 pixels may
+   differ by more than 1e-3 in a channel, and the mean difference stays
+   below 1e-4.
+3. The headline frame at full size, one light: the 1,000,188-atom FCC block
+   (a = 3.615, r = 1.28), the "perspective" preset camera, 1920x1080, AA 12
+   (13 samples) with primary-light shadows, through
+   ``TachyonRender(backend="cuda", ao=False).render(..., device_output=True)``.
+   Checks the image and that the kernel was launched; times the first frame
+   (scene and accel build included) and 5 warm frames; times each layer;
+   compares the kernel with its plain version on the whole frame and times
+   both over a band of the frame's tile rows.
+4. BASELINE config 3: a ~1M-atom Voronoi polycrystal (Cu FCC, a = 3.615, a
+   230 A periodic cube, 15 grains from seed 1, built here with numpy and
+   scipy), r = 1.28, copper colour, the "perspective" preset camera,
+   1920x1080, through ``TachyonRender(backend="cuda", ao=True,
+   ao_samples=12, aa_samples=2, background=(1, 1, 1))``: a transparent frame
+   (alpha holds 0 and 255), the first frame and 5 warm
+   ``device_output=True`` frames, Grays/s by the rays traced, the layers, a
+   camera move that reuses the scene-keyed AO lights, peak memory, and the
+   kernel against its plain version on the whole frame, both timed over a
+   band of 2 tile rows.
 
 The last three lines are the kernel table (JSON), the card's name and power
 limit as nvidia-smi reports them, and a JSON status line.
@@ -61,6 +74,54 @@ def fcc_block(n_cells: int, seed=None):
         colors = np.c_[rng.uniform(0.2, 1.0, (len(pos), 3)),
                        np.ones(len(pos))].astype(np.float32)
     return pos, colors, np.full(len(pos), 1.28, np.float32)
+
+
+def _rotation(theta_deg, axis: int) -> np.ndarray:
+    """Rotation by theta_deg degrees about coordinate axis 0, 1 or 2."""
+    t = np.radians(theta_deg)
+    c, s = np.cos(t), np.sin(t)
+    i, j = [k for k in range(3) if k != axis]
+    r = np.eye(3)
+    r[i, i], r[i, j], r[j, i], r[j, j] = c, -s, s, c
+    return r
+
+
+def voronoi_polycrystal(box=230.0, grains=15, seed=1, a=3.615, min_dist=2.0):
+    """Periodic Voronoi polycrystal of FCC grains: one random seed point and
+    one random rotation per grain (drawn from ``seed`` in that order), each
+    lattice point kept by the grain whose seed is nearest (periodic), then
+    one atom of each pair closer than ``min_dist`` removed."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    seeds = rng.random((grains, 3)) * box
+    theta = rng.uniform(-180.0, 180.0, (grains, 3))
+    tree = cKDTree(seeds, boxsize=box)
+    # each grain's reach: its farthest owned point of a coarse grid, plus
+    # two grid diagonals
+    ng = 48
+    g = (np.arange(ng) + 0.5) * (box / ng)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    dist, owner = tree.query(grid)
+    reach = np.array([dist[owner == i].max() for i in range(grains)])
+    reach += 2.0 * np.sqrt(3.0) * box / ng
+    frac = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    parts = []
+    for i in range(grains):
+        n = int(np.ceil(reach[i] / a)) + 1
+        cells = np.mgrid[-n:n, -n:n, -n:n].reshape(3, -1).T
+        lat = (cells[:, None] + frac[None]).reshape(-1, 3) * a
+        lat = lat[np.einsum("ij,ij->i", lat, lat) <= reach[i] ** 2]
+        rot = (_rotation(theta[i, 0], 0) @ _rotation(theta[i, 1], 1)
+               @ _rotation(theta[i, 2], 2))
+        p = np.mod(lat @ rot.T + seeds[i], box)
+        p[p >= box] = 0.0
+        parts.append(p[tree.query(p)[1] == i])
+    pos = np.concatenate(parts)
+    pairs = cKDTree(pos, boxsize=box).query_pairs(min_dist, output_type="ndarray")
+    keep = np.ones(len(pos), bool)
+    keep[pairs.max(axis=1)] = False
+    return pos[keep]
 
 
 def sync_time(fn):
@@ -106,6 +167,7 @@ def main() -> None:
 
     from mdapy_tpu_torch import TachyonRender, preset_camera
     from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render import render as trender
     from mdapy_tpu_torch.render._build import load_mega_render
     from mdapy_tpu_torch.render.accel import (
         build_light_bins, build_light_records, build_screen_bins,
@@ -116,8 +178,16 @@ def main() -> None:
     from mdapy_tpu_torch.render.scene import build_scene
 
     dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    print(f"card: {card}")
 
     # ---- 1. build -------------------------------------------------------
     lib = load_mega_render()
@@ -133,32 +203,49 @@ def main() -> None:
         lb = build_light_bins(scene, frame["light_dir"], grid=grid)
         chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
                                        scene.sph_radius, scene.sph_color)
-        lrec = build_light_records(lb, scene)
         lo = (scene.sph_center - scene.sph_radius[:, None]).min(0).values
         hi = (scene.sph_center + scene.sph_radius[:, None]).max(0).values
         params = megakernel.build_mega_params(frame, lb, lo, hi, cfg)
-        return frame, bins, chunk_data, lrec, params
+        extra = (trender.build_ao_lights(scene, cfg.ao_samples,
+                                         cfg.ao_brightness, float(radii.max()),
+                                         grid=grid)
+                 if cfg.ao_enabled else None)
+        lights = None
+        if cfg.shadows_enabled or extra:
+            primary = (build_light_records(lb, scene) if cfg.shadows_enabled
+                       else (None, None, None, None))
+            lights = megakernel.stack_lights(params, *primary,
+                                             extra_lights=extra, grid_n=grid,
+                                             device=dev)
+        return frame, bins, chunk_data, lights, params
 
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
     errs = []
-    for preset, aa, shadows in (("perspective", 2, True), ("top", 0, True),
-                                ("perspective", 0, False)):
+    for preset, aa, shadows, ao in (
+            ("perspective", 2, True, 0), ("top", 0, True, 0),
+            ("perspective", 0, False, 0), ("perspective", 2, True, 12),
+            ("top", 0, False, 4)):
         cam = preset_camera(preset, pos, max_radius=1.28)
-        cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_enabled=False,
-                           shadows_enabled=shadows)
-        frame, bins, cd, lrec, params = prepare(pos, colors, radii, cam, 320,
-                                                240, cfg)
+        cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_enabled=ao > 0,
+                           ao_samples=ao, shadows_enabled=shadows)
+        frame, bins, cd, lights, params = prepare(pos, colors, radii, cam, 320,
+                                                  240, cfg)
+        nl = 1 if lights is None else lights.lparams.shape[0]
+        if nl != (1 + 2 * (ao // 2) if ao else 1):
+            fail(f"{preset} ao_samples={ao}: {nl} lights stacked")
         kw = dict(S=aa + 1, tiles_x=bins.tiles_x, grid_n=32, eps=cfg.eps,
-                  perspective=bool(frame["perspective"]), shadows=shadows)
-        args = (cd, bins.sph_zmin, *lrec, params, 0)
+                  perspective=bool(frame["perspective"]),
+                  shadows=lights is not None)
+        args = (cd, bins.sph_zmin, lights, params, 0)
         out_k = megakernel.mega_render_cuda(*args, **kw)
         out_p = megakernel.mega_render_plain(*args, **kw)
         torch.cuda.synchronize()
         if float(out_p.std()) < 0.02:
             fail(f"{preset}: the plain image is flat")
         errs.append(compare(out_k, out_p, f"[2] {len(pos)} atoms 320x240 "
-                            f"{preset} S={aa + 1} shadows={shadows}"))
+                            f"{preset} S={aa + 1} shadows={shadows} "
+                            f"ao_samples={ao} lights={nl}"))
 
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
@@ -177,7 +264,9 @@ def main() -> None:
     launches = megakernel.launches
     peak = torch.cuda.max_memory_allocated()
     t_warm /= WARM_FRAMES
-    print(f"[3] {len(pos)} atoms {width}x{height} S={S} shadows: first frame "
+    headline_warm_ms = t_warm * 1e3
+    print(f"[3] {card}: {len(pos)} atoms {width}x{height} S={S} shadows, 1 "
+          f"light: first frame "
           f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
           f"{WARM_FRAMES} frames, {width * height * S * 2 / t_warm / 1e9:.4f} "
           f"Grays/s, peak allocated {peak} bytes, kernel launches {launches}")
@@ -199,11 +288,13 @@ def main() -> None:
     cd, t_gather = sync_time(lambda: gather_chunk_data(
         bins.sph_chunks, scene.sph_center, scene.sph_radius, scene.sph_color))
     lrec, t_lrec = sync_time(lambda: build_light_records(lb, scene))
-    _, frame_bins, chunk_data, lrec_main, params = ren._accel
+    _, frame_bins, chunk_data, lights_main, params = ren._accel
     nb, nchunks = frame_bins.sph_zmin.shape
+    if lights_main.lparams.shape[0] != 1:
+        fail(f"the headline frame stacked {lights_main.lparams.shape[0]} lights")
     kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=cfg.eps,
               perspective=True, shadows=True)
-    args = (chunk_data, frame_bins.sph_zmin, *lrec_main, params, 0)
+    args = (chunk_data, frame_bins.sph_zmin, lights_main, params, 0)
     kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
     print(f"  layers: scene {t_scene * 1e3:.1f} ms, screen bins "
           f"{t_bins * 1e3:.1f} ms, light bins {t_lbins * 1e3:.1f} ms, gather "
@@ -212,7 +303,7 @@ def main() -> None:
     print(f"  tiles {nb} ({frame_bins.tiles_x}x{frame_bins.tiles_y}), chunks "
           f"per tile {nchunks}, live tiles "
           f"{int((frame_bins.sph_zmin[:, 0] < 1e17).sum())}, light records "
-          f"{lrec_main[0].shape[0]}, records {chunk_data.numel() * 4} bytes")
+          f"{lights_main.lrec.shape[0]}, records {chunk_data.numel() * 4} bytes")
 
     # kernel vs plain on the whole frame, then timed over a band of the
     # frame's middle tile rows
@@ -225,26 +316,153 @@ def main() -> None:
     band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
     band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
     plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
-    print(f"  band of {band[1] - band[0]} tiles: kernel {band_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
+    print(f"  headline band of {band[1] - band[0]} tiles on {card}: kernel "
+          f"{band_ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del ren, args, chunk_data, lights_main, frame_bins, scene, bins, lb, cd, lrec
+    torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    # ---- 4. BASELINE config 3: ~1M-atom polycrystal with fast AO ------------
+    t0 = time.perf_counter()
+    pos = voronoi_polycrystal()
+    t_build = time.perf_counter() - t0
+    n_atoms = len(pos)
+    colors = np.tile(np.array([[0.78, 0.5, 0.2, 1.0]], np.float32), (n_atoms, 1))
+    radii = np.full(n_atoms, 1.28, np.float32)
+    print(f"[4] Voronoi polycrystal (230 A periodic cube, 15 grains, seed 1): "
+          f"{n_atoms} atoms, built in {t_build:.1f} s on the host")
+    if not 900_000 < n_atoms < 1_100_000:
+        fail(f"the polycrystal has {n_atoms} atoms")
+    AA, K = 2, 12
+    S = AA + 1
+    cam = preset_camera("perspective", pos, max_radius=1.28)
+    ren = TachyonRender(backend="cuda", ao=True, ao_samples=K, aa_samples=AA,
+                        background=(1.0, 1.0, 1.0))
+
+    def ao_frame(camera=cam, **kw):
+        return ren.render(pos, colors, radii, camera=camera, width=width,
+                          height=height, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    megakernel.reset_launches()
+    img, t_first = sync_time(lambda: ao_frame(device_output=True))
+    rgba, t_transp = sync_time(lambda: ao_frame(transparent=True))
+    img, t_warm = sync_time(
+        lambda: [ao_frame(device_output=True) for _ in range(WARM_FRAMES)][-1])
+    ao_launches = megakernel.launches
+    ao_peak = torch.cuda.max_memory_allocated()
+    t_warm /= WARM_FRAMES
+    lights = ren._accel[3]
+    nl = lights.lparams.shape[0]
+    rays = width * height * (2 * S + K)
+    print(f"[4] {card}: config 3, {n_atoms} atoms {width}x{height} S={S} "
+          f"shadows + AO {K} sky lights ({nl} lights): first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames, {rays / t_warm / 1e9:.4f} Grays/s by the rays "
+          f"traced W*H*(2S+K), peak allocated {ao_peak} bytes, kernel launches "
+          f"{ao_launches}")
+    print(f"  bench.py:311 counts W*H*S*(2+K) = {width * height * S * (2 + K)} "
+          f"rays, {S * (2 + K)}/{2 * S + K} of the {rays} traced "
+          f"(S primary + S primary-shadow + K sample-0 sky rays per pixel)")
+    if nl != 1 + K:
+        fail(f"config 3 stacked {nl} lights, not {1 + K}")
+    if ao_launches < 2 + WARM_FRAMES:
+        fail(f"the AO path launched the kernel {ao_launches} times")
+    if img.dtype != torch.uint8 or tuple(img.shape) != (height, width, 3):
+        fail(f"AO image is {img.dtype} {tuple(img.shape)}")
+    std = float(img.float().std())
+    alpha = rgba[..., 3]
+    print(f"  image uint8 {tuple(img.shape)}, std {std:.2f}; transparent frame "
+          f"{t_transp * 1e3:.1f} ms, alpha 0 on {int((alpha == 0).sum())} and "
+          f"255 on {int((alpha == 255).sum())} pixels")
+    if not std > 1 or not float(rgba[..., :3].std()) > 1:
+        fail("the AO image is flat")
+    if not ((alpha == 0).any() and (alpha == 255).any()):
+        fail("the transparent frame's alpha lacks 0 or 255")
+    if rgba.dtype != np.uint8 or rgba.shape != (height, width, 4):
+        fail(f"transparent frame is {rgba.dtype} {rgba.shape}")
+
+    # layers of the AO main path, each bracketed by synchronize
+    cfg = ren._cfg
+    scene, t_scene = sync_time(lambda: build_scene(pos, colors, radii, device=dev))
+    frame = camera_frame(cam, width, height)
+    bins, t_bins = sync_time(lambda: build_screen_bins(scene, frame, width, height))
+    lb, t_lbins = sync_time(lambda: build_light_bins(scene, frame["light_dir"], grid=32))
+    _, t_lrec = sync_time(lambda: build_light_records(lb, scene))
+    _, t_ao = sync_time(lambda: trender.build_ao_lights(
+        scene, K, cfg.ao_brightness, 1.28, grid=32))
+    _, t_gather = sync_time(lambda: gather_chunk_data(
+        bins.sph_chunks, scene.sph_center, scene.sph_radius, scene.sph_color))
+    del scene, bins, lb
+    _, frame_bins, chunk_data, lights, params = ren._accel
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=cfg.eps,
+              perspective=True, shadows=True)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    ao_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    # the kernel's split: closest hit + shading, then the primary light's
+    # sweep, then the sky lights' sweeps
+    primary_only = megakernel.LightStack(
+        lights.lparams[:1].contiguous(), lights.lrec,
+        *(t[:1].contiguous() for t in lights[2:]))
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    prim_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, primary_only, params, 0, **kw), 5)
+    print(f"  layers: scene {t_scene * 1e3:.1f} ms, screen bins "
+          f"{t_bins * 1e3:.1f} ms, primary light bins {t_lbins * 1e3:.1f} ms, "
+          f"primary light records {t_lrec * 1e3:.1f} ms, {K} AO light builds "
+          f"{t_ao * 1e3:.1f} ms, gather {t_gather * 1e3:.1f} ms, kernel (full "
+          f"frame) {ao_kernel_ms:.3f} ms")
+    print(f"  kernel split: closest hit + shading {hit_ms:.3f} ms, primary "
+          f"sweep +{prim_ms - hit_ms:.3f} ms, {K} AO sweeps "
+          f"+{ao_kernel_ms - prim_ms:.3f} ms")
+    print(f"  tiles {frame_bins.sph_zmin.shape[0]}, chunks per tile "
+          f"{frame_bins.sph_zmin.shape[1]}, live tiles "
+          f"{int((frame_bins.sph_zmin[:, 0] < 1e17).sum())}, light records "
+          f"{lights.lrec.shape[0]} over {nl} lights "
+          f"({lights.lrec.numel() * 4} bytes), records "
+          f"{chunk_data.numel() * 4} bytes")
+
+    # a camera move: the view-keyed structures are rebuilt, the AO lights
+    # (keyed by the scene) are reused
+    ao_before = ren._ao
+    cam2 = preset_camera("perspective", pos + np.array([8.0, -5.0, 3.0]),
+                         max_radius=1.28)
+    img2, t_move = sync_time(lambda: ao_frame(camera=cam2, device_output=True))
+    print(f"  camera move: {t_move * 1e3:.1f} ms, AO lights reused: "
+          f"{ren._ao is ao_before}")
+    if ren._ao is not ao_before:
+        fail("the camera move rebuilt the AO lights")
+    if float(img2.float().std()) <= 1 or torch.equal(img2, img):
+        fail("the moved camera's frame is flat or unchanged")
+
+    # kernel vs plain on the whole frame, then both over a band of 2 tile rows
+    out_k = megakernel.mega_render_cuda(*args, **kw)
+    out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
+    errs.append(compare(out_k, out_p, f"[4] AO full frame (plain {t_plain:.2f} s)"))
+    del out_k, out_p
+    ty0 = frame_bins.tiles_y // 2 - rows // 2
+    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
+    ao_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
+    ao_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    print(f"  AO band of {band[1] - band[0]} tiles on {card}: kernel "
+          f"{ao_band_ms:.3f} ms, plain {ao_plain_ms:.3f} ms")
+    print(f"[3+4] {card}: headline (1 light) warm {headline_warm_ms:.3f} ms/frame, "
+          f"config 3 (AO) warm {t_warm * 1e3:.3f} ms/frame")
+
     print(json.dumps({"kernels": [{
         "name": "mega_render",
         "route": "cuda",
         "source": "mdapy_tpu_torch/csrc/mega_render.cu",
         "replaces": "mdapy_tpu/render/megakernel.py:156",
-        "launches": launches,
+        "launches": launches + ao_launches,
         "max_abs_err": max(errs),
         "ms": band_ms,
         "plain_ms": plain_ms,
+        "ao_ms": ao_band_ms,
+        "ao_plain_ms": ao_plain_ms,
     }]}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Hand CUDA kernel for the render pass of one frame: raygen with AA jitter,
 // front-to-back sphere closest hit, Lambert shading, the primary light's
-// shadow sweep and the AA mean, for opaque spheres and one directional light.
+// shadow sweep, the ambient-occlusion sky lights and the AA mean, for opaque
+// spheres.
 //
 // Replaces the sphere slice of the Pallas TPU kernel
 // mdapy_tpu/render/megakernel.py:_mega_kernel (launched at :2051 by
@@ -17,14 +18,23 @@
 //     kernel's exclusive one-hot select does;
 //   * the shadow sweep is per ray: a lit point walks its light-grid cell's
 //     records in descending far-key order and stops at the first occluder or
-//     once key <= tau + eps, after which no record can occlude.
+//     once key <= tau + eps, after which no record can occlude;
+//   * with ambient occlusion (the AO template flag) lights 1..L-1 are the
+//     directional sky lights of the JAX package's fast AO.  As in its
+//     ao_shared mode, their occlusion is tested on AA sample 0's hit point
+//     only: while the first sample group is shaded, sample 0 walks each sky
+//     light's cell records and keeps the result as one bit per light.  Every
+//     sample then adds lit * n.L * lightcol * (1 - bit) for each light in
+//     light order, with its own normal.  The light rows (L x 16 floats) sit
+//     in shared memory.  Without AO the kernel is the one-light kernel.
 //
 // What bounds it on the card: per-ray sphere tests (about 10 fp32 operations
 // each, ~128 per processed chunk) and the shadow walks, whose lengths vary
-// from ray to ray and so diverge within a warp.  Candidate records are read
-// once per chunk per block, so device memory traffic is small next to the
-// arithmetic.  Later work: warp-cooperative shadow windows, sorting rays by
-// light cell, persistent blocks.
+// from ray to ray and so diverge within a warp; with AO, sample 0 runs L-1
+// more walks one after another.  Candidate records are read once per chunk
+// per block, so device memory traffic is small next to the arithmetic.
+// Later work: warp-cooperative shadow windows, sorting rays by light cell,
+// persistent blocks.
 //
 // Built by mdapy_tpu_torch/render/_build.py with nvcc for sm_90a into a
 // shared library with a plain C interface (ctypes).  It is compiled with
@@ -40,6 +50,7 @@ constexpr int TILE = 16;
 constexpr int P = TILE * TILE;   // pixels per tile = threads per block
 constexpr int CH = 128;          // candidates per chunk
 constexpr int SG = 8;            // most AA samples traced per chunk walk
+constexpr int MAX_LIGHTS = 64;   // lights a launch takes (one mask bit each)
 constexpr float BIG = 1e18f;
 constexpr float BIG_DEPTH = 1e17f;
 constexpr float MINCONTRIB = 1.0f / 512.0f;
@@ -81,25 +92,73 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return r;
 }
 
-template <bool PERSP, bool SHADOWS>
+// True when a record of the point's light-grid cell blocks it: the cell's
+// records run by descending far key, so the walk stops at the first occluder
+// or once key <= tau + eps, after which no record can occlude.
+__device__ __forceinline__ bool occluded(const float4* __restrict__ lrec,
+                                         const int* __restrict__ loffs,
+                                         const int* __restrict__ lcnt,
+                                         const float* __restrict__ lkmax,
+                                         int cell, float u, float v,
+                                         float tau_eps) {
+  const int cnt = lcnt[cell];
+  if (!(cnt > 0 && lkmax[cell] > tau_eps)) return false;
+  const float4* rp = lrec + 2 * (size_t)loffs[cell];
+  for (int i = 0; i < cnt; ++i) {
+    const float4 a = rp[2 * i];      // cu, cv, ck, r
+    const float key = rp[2 * i + 1].x;
+    if (key <= tau_eps) return false;
+    const float du = a.x - u, dv = a.y - v;
+    const float s2 = a.w * a.w - (du * du + dv * dv);
+    const float q = tau_eps - a.z;
+    if (s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q)) return true;
+  }
+  return false;
+}
+
+// Shadow test of hit point h toward the light of row lp (dir, e1, e2, org,
+// inv_cell), whose cells start at cell0 in the stacked CSR arrays.
+__device__ __forceinline__ bool light_blocked(const float* lp, float hx,
+                                              float hy, float hz, int grid_n,
+                                              int cell0, float eps,
+                                              const float4* __restrict__ lrec,
+                                              const int* __restrict__ loffs,
+                                              const int* __restrict__ lcnt,
+                                              const float* __restrict__ lkmax) {
+  const float u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9];
+  const float v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10];
+  const float tau = hx * lp[0] + hy * lp[1] + hz * lp[2];
+  const float gmax = (float)(grid_n - 1);
+  const float gx = fminf(fmaxf(floorf(u * lp[11]), 0.0f), gmax);
+  const float gy = fminf(fmaxf(floorf(v * lp[11]), 0.0f), gmax);
+  const int cell = cell0 + (int)gy * grid_n + (int)gx;
+  return occluded(lrec, loffs, lcnt, lkmax, cell, u, v, tau + eps);
+}
+
+template <bool PERSP, bool SHADOWS, bool AO>
 __global__ void __launch_bounds__(P)
 mega_render_kernel(const float* __restrict__ params,
+                   const float* __restrict__ lparams, // (nlights, 16)
                    const float* __restrict__ chunks,  // (nb, nchunks, 8, CH)
                    const float* __restrict__ zmin,    // (nb, nchunks)
                    const float4* __restrict__ lrec,   // (M, 2) float4 rows
-                   const int* __restrict__ loffs,     // (ncells,)
-                   const int* __restrict__ lcnt,      // (ncells,)
-                   const float* __restrict__ lkmax,   // (ncells,)
+                   const int* __restrict__ loffs,     // (nlights, ncells)
+                   const int* __restrict__ lcnt,      // (nlights, ncells)
+                   const float* __restrict__ lkmax,   // (nlights, ncells)
                    float* __restrict__ out,           // (ntiles, 3*P)
                    int tile0, int nchunks, int tiles_x, int S,
-                   uint32_t seed, int grid_n, float eps, float inv_s) {
+                   uint32_t seed, int grid_n, int nlights, float eps,
+                   float inv_s) {
   __shared__ float sp[64];
+  __shared__ float slp[AO ? MAX_LIGHTS * 16 : 1];
   __shared__ float4 cand[CH];
   __shared__ float red[P / 32];
 
   const int tile = tile0 + blockIdx.x;
   const int pix = threadIdx.x;
   if (pix < 64) sp[pix] = params[pix];
+  if (AO)
+    for (int i = pix; i < nlights * 16; i += P) slp[i] = lparams[i];
   __syncthreads();
 
   float* tout = out + (size_t)blockIdx.x * 3 * P;
@@ -128,6 +187,7 @@ mega_render_kernel(const float* __restrict__ params,
   const float* tchunks = chunks + (size_t)tile * nchunks * 8 * CH;
 
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  uint64_t aoblocked = 0;  // bit l: sky light l blocked at sample 0's hit
   const int ngroups = (S + SG - 1) / SG;
   for (int g = 0; g < ngroups; ++g) {
     const int s0 = g * S / ngroups;
@@ -268,37 +328,35 @@ mega_render_kernel(const float* __restrict__ params,
         nx *= flip;
         ny *= flip;
         nz *= flip;
+        if (AO && SHADOWS && k == 0 && g == 0) {
+          // sample 0: the shared occlusion of every sky light
+          for (int l = 1; l < nlights; ++l) {
+            const float* lp = slp + 16 * l;
+            const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
+            if (il > MINCONTRIB && !missed &&
+                light_blocked(lp, hx, hy, hz, grid_n, l * grid_n * grid_n,
+                              eps, lrec, loffs, lcnt, lkmax))
+              aoblocked |= 1ull << l;
+          }
+        }
         const float inten = nx * lx + ny * ly + nz * lz;
         const bool litb = (inten > MINCONTRIB) && !missed;
         float filt = 1.0f;
-        if (SHADOWS && litb) {
-          const float u = hx * sp[18] + hy * sp[19] + hz * sp[20] - sp[24];
-          const float v = hx * sp[21] + hy * sp[22] + hz * sp[23] - sp[25];
-          const float tau = hx * lx + hy * ly + hz * lz;
-          const float gmax = (float)(grid_n - 1);
-          const float gx = fminf(fmaxf(floorf(u * sp[26]), 0.0f), gmax);
-          const float gy = fminf(fmaxf(floorf(v * sp[26]), 0.0f), gmax);
-          const int cell = (int)gy * grid_n + (int)gx;
-          const float tau_eps = tau + eps;
-          const int cnt = lcnt[cell];
-          if (cnt > 0 && lkmax[cell] > tau_eps) {
-            const float4* rp = lrec + 2 * (size_t)loffs[cell];
-            for (int i = 0; i < cnt; ++i) {
-              const float4 a = rp[2 * i];      // cu, cv, ck, r
-              const float key = rp[2 * i + 1].x;
-              if (key <= tau_eps) break;      // no later record can occlude
-              const float du = a.x - u, dv = a.y - v;
-              const float s2 = a.w * a.w - (du * du + dv * dv);
-              const float q = tau_eps - a.z;
-              if (s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q)) {
-                filt = 0.0f;
-                break;
-              }
-            }
+        if (SHADOWS && litb &&
+            light_blocked(sp + 15, hx, hy, hz, grid_n, 0, eps, lrec, loffs,
+                          lcnt, lkmax))
+          filt = 0.0f;
+        const float lit = litb ? 1.0f : 0.0f;
+        float sh = lit * inten * lightcol * filt;
+        if (AO) {
+          for (int l = 1; l < nlights; ++l) {
+            const float* lp = slp + 16 * l;
+            const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
+            const float ll = (il > MINCONTRIB && !missed) ? 1.0f : 0.0f;
+            const float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+            sh = sh + ll * il * lp[12] * fl;
           }
         }
-        const float lit = litb ? 1.0f : 0.0f;
-        const float sh = lit * inten * lightcol * filt;
         const float shade = 0.8f * sh + ambient;
         ar = ar + (missed ? bgr : cr * shade);
         ag = ag + (missed ? bgg : cg * shade);
@@ -311,35 +369,48 @@ mega_render_kernel(const float* __restrict__ params,
   tout[2 * P + pix] = ab * inv_s;
 }
 
-template <bool PERSP, bool SHADOWS>
+template <bool PERSP, bool SHADOWS, bool AO>
 void launch(cudaStream_t st, int ntiles, int tile0, const float* params,
-            const float* chunks, const float* zmin, const float* lrec,
-            const int* loffs, const int* lcnt, const float* lkmax, float* out,
-            int nchunks, int tiles_x, int S, uint32_t seed, int grid_n,
-            float eps, float inv_s) {
-  mega_render_kernel<PERSP, SHADOWS><<<ntiles, P, 0, st>>>(
-      params, chunks, zmin, reinterpret_cast<const float4*>(lrec), loffs, lcnt,
-      lkmax, out, tile0, nchunks, tiles_x, S, seed, grid_n, eps, inv_s);
+            const float* lparams, const float* chunks, const float* zmin,
+            const float* lrec, const int* loffs, const int* lcnt,
+            const float* lkmax, float* out, int nchunks, int tiles_x, int S,
+            uint32_t seed, int grid_n, int nlights, float eps, float inv_s) {
+  mega_render_kernel<PERSP, SHADOWS, AO><<<ntiles, P, 0, st>>>(
+      params, lparams, chunks, zmin, reinterpret_cast<const float4*>(lrec),
+      loffs, lcnt, lkmax, out, tile0, nchunks, tiles_x, S, seed, grid_n,
+      nlights, eps, inv_s);
+}
+
+template <bool PERSP>
+decltype(&launch<true, true, true>) pick(bool shadows, bool ao) {
+  if (shadows) return ao ? &launch<PERSP, true, true> : &launch<PERSP, true, false>;
+  return ao ? &launch<PERSP, false, true> : &launch<PERSP, false, false>;
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` over tiles [tile0, tile0 + ntiles) and
-// writes their rows to out[0 .. ntiles); returns cudaGetLastError().
-// lrec must be 16-byte aligned (M, 8) rows [cu, cv, ck, r, key, alpha, 0, 0].
-extern "C" int mega_render_launch(const float* params, const float* chunks,
-                                  const float* zmin, const float* lrec,
-                                  const int* loffs, const int* lcnt,
-                                  const float* lkmax, float* out, int ntiles,
-                                  int tile0, int nchunks, int tiles_x, int S,
-                                  unsigned int seed, int grid_n, float eps,
-                                  float inv_s, int perspective, int shadows,
-                                  void* stream) {
+// writes their rows to out[0 .. ntiles); returns cudaGetLastError(), or
+// cudaErrorInvalidValue when nlights is outside [1, MAX_LIGHTS].
+// lparams holds nlights rows of 16 floats (row 0 is read from params);
+// lrec must be 16-byte aligned (M, 8) rows [cu, cv, ck, r, key, alpha, 0, 0];
+// loffs, lcnt and lkmax hold nlights x grid_n^2 cells, light after light.
+extern "C" int mega_render_launch(const float* params, const float* lparams,
+                                  const float* chunks, const float* zmin,
+                                  const float* lrec, const int* loffs,
+                                  const int* lcnt, const float* lkmax,
+                                  float* out, int ntiles, int tile0,
+                                  int nchunks, int tiles_x, int S,
+                                  unsigned int seed, int grid_n, int nlights,
+                                  float eps, float inv_s, int perspective,
+                                  int shadows, void* stream) {
+  if (nlights < 1 || nlights > MAX_LIGHTS)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = perspective
-                ? (shadows ? launch<true, true> : launch<true, false>)
-                : (shadows ? launch<false, true> : launch<false, false>);
-  go(st, ntiles, tile0, params, chunks, zmin, lrec, loffs, lcnt, lkmax, out,
-     nchunks, tiles_x, S, seed, grid_n, eps, inv_s);
+  const bool ao = nlights > 1;
+  auto go = perspective ? pick<true>(shadows != 0, ao)
+                        : pick<false>(shadows != 0, ao);
+  go(st, ntiles, tile0, params, lparams, chunks, zmin, lrec, loffs, lcnt,
+     lkmax, out, nchunks, tiles_x, S, seed, grid_n, nlights, eps, inv_s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,10 @@ import torch
 from .accel import ScreenBins
 from .scene import Scene
 
-__all__ = ["scene_from_numpy", "screen_bins_from_numpy", "light_records_from_numpy"]
+__all__ = [
+    "scene_from_numpy", "screen_bins_from_numpy", "light_records_from_numpy",
+    "extra_lights_from_numpy",
+]
 
 
 def scene_from_numpy(scene, device="cpu", dtype=torch.float32) -> Scene:
@@ -60,3 +63,25 @@ def light_records_from_numpy(ldata, offs, count, lkmax, device="cpu"):
 
     return (t(ldata[:, rows].T, torch.float32), t(new_offs, torch.int32),
             t(count, torch.int32), t(np.asarray(lkmax, np.float32), torch.float32))
+
+
+def extra_lights_from_numpy(extra_lights, device="cpu") -> list:
+    """JAX ``render_image_mega`` ``extra_lights`` entries
+    ``(lrow, ldata, loffs, lcnt, occ[, lkmax])`` -> the port's
+    ``stack_lights`` entries ``(lrow, lrec, loffs, lcnt, lkmax)``.
+
+    The cylinder/ring occluder slot must be None: the port has no cylinders
+    yet (ROADMAP B1d)."""
+    out = []
+    for entry in extra_lights:
+        lrow, ldata, loffs, lcnt, occ = entry[:5]
+        if occ is not None:
+            raise ValueError("cylinder/ring occluders are not ported yet "
+                             "(ROADMAP B1d)")
+        ncells = np.asarray(loffs).shape[0]
+        lkmax = entry[5] if len(entry) > 5 and entry[5] is not None else (
+            np.full(ncells, 1e18, np.float32))
+        out.append((np.asarray(lrow, np.float32),
+                    *light_records_from_numpy(ldata, loffs, lcnt, lkmax,
+                                              device=device)))
+    return out

@@ -3,7 +3,9 @@
 Port of the sphere slice of ``mdapy_tpu/render/megakernel.py`` —
 ``build_mega_params`` (:81), ``_hash_jitter`` (:110), the Pallas kernel
 ``_mega_kernel`` (:156) and its host wrapper ``render_image_mega`` (:1852) —
-for one directional light with opaque spheres (ROADMAP B1a + B1b).
+for opaque spheres lit by the primary directional light and, with ambient
+occlusion, by the AO sky lights that share its traversal (ROADMAP B1a, B1b
+and B1c).
 
 Per 16x16 screen tile and per AA sample the pass:
   * generates the ray (perspective or orthographic), jittered by a 32-bit
@@ -15,25 +17,34 @@ Per 16x16 screen tile and per AA sample the pass:
   * for a lit point, walks its light-grid cell's records in descending
     far-key order and stops at the first occluder, or once key <= tau + eps
     (no later record can occlude);
+  * adds each light's n.L term in light order; the primary light (light 0)
+    is shadowed per sample, an AO sky light (l > 0) only on sample 0's hit
+    point, whose visibility every sample then shares (the JAX package's
+    ``ao_shared`` mode, its default);
   * writes the AA mean as (tiles, 3*256) rows [R | G | B].
+
+The lights reach the pass as one ``LightStack`` (``stack_lights``): the
+primary light's row comes from ``params``, the sky lights' rows and CSR
+records from ``extra_lights`` entries, with the JAX wrapper's meaning.
 
 ``mega_render`` dispatches on the tensors' device: CUDA tensors go to the
 hand kernel (``csrc/mega_render.cu``), CPU tensors to ``mega_render_plain``,
-the plain torch version of the same computation.  The AO sky lights (B1c),
-cylinders and rings (B1d), transparency peeling (B1e) and the banded variant
-(B1f) are not ported yet.
+the plain torch version of the same computation.  Cylinders and rings (B1d),
+transparency peeling (B1e) and the banded variant (B1f) are not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
-    "build_mega_params", "hash_jitter", "mega_render", "mega_render_plain",
-    "mega_render_cuda", "render_image_mega", "launches", "reset_launches",
+    "LightStack", "build_mega_params", "hash_jitter", "light_row",
+    "mega_render", "mega_render_plain", "mega_render_cuda", "render_image_mega",
+    "stack_lights", "launches", "reset_launches",
 ]
 
 BIG = 1e18
@@ -45,6 +56,7 @@ CH = 128                   # candidates per chunk
 # element budget of one (tiles, rays, CH) temporary in the plain version
 _PLAIN_ELEMS = 1 << 26
 _SHADOW_STEP = 64          # records per step of the plain shadow walk
+MAX_LIGHTS = 64            # lights one launch takes (the kernel's 64-bit mask)
 
 # hand-kernel launches since the last reset_launches()
 launches = 0
@@ -86,6 +98,89 @@ def build_mega_params(frame, lb, aabb_lo, aabb_hi, cfg) -> np.ndarray:
     if cfg.ao_enabled:
         p[27] *= 0.2   # rt_rescale_lights(0.2) parity (tachyon_render.h:199)
     return p
+
+
+class LightStack(NamedTuple):
+    """L directional lights for one launch, their CSR records back to back.
+
+    Light 0 is the primary light, lights 1.. the AO sky lights.  A row of
+    ``lparams`` is [dir(3), e1(3), e2(3), org(2), inv_cell, lightcol, rmax,
+    0, 0], as the JAX wrapper packs it."""
+
+    lparams: torch.Tensor  # (L, 16) f32
+    lrec: torch.Tensor     # (M, 8) f32 rows of every light
+    loffs: torch.Tensor    # (L, ncells) i32 starts into lrec
+    lcnt: torch.Tensor     # (L, ncells) i32
+    lkmax: torch.Tensor    # (L, ncells) f32 per-cell max far key
+
+
+def light_row(light_dir, lb, lightcol: float, rmax: float = 0.0) -> np.ndarray:
+    """One light's (16,) f32 row from its direction and light bins (slot 13
+    holds the scene's max radius, as the JAX front end stores it)."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return np.asarray(a, np.float32).reshape(-1)
+
+    row = np.zeros(16, np.float32)
+    row[0:3] = host(light_dir)
+    row[3:6] = host(lb.e1)
+    row[6:9] = host(lb.e2)
+    row[9:11] = host(lb.org)
+    row[11] = float(lb.inv_cell)
+    row[12] = lightcol
+    row[13] = rmax
+    return row
+
+
+def stack_lights(params, lrec, loffs, lcnt, lkmax, extra_lights=None, *,
+                 grid_n: int, device=None) -> LightStack:
+    """Stack the primary light and ``extra_lights`` for one launch.
+
+    ``lrec, loffs, lcnt, lkmax`` are the primary light's records from
+    ``build_light_records``; ``lrec=None`` gives it an empty CSR (no
+    shadows).  Each extra entry is ``(lrow (16,), lrec, loffs, lcnt,
+    lkmax)``; its base offset in the stacked records is folded into its
+    ``loffs``.  A ``None`` lkmax never skips a cell (+BIG).  Row 0 comes from
+    ``params[15:28]``, as at ``megakernel.py:1936-1939``."""
+    ncells = grid_n * grid_n
+    if device is None:
+        device = lrec.device if lrec is not None else torch.device("cpu")
+    f32, i32 = torch.float32, torch.int32
+    p = torch.as_tensor(np.asarray(params, np.float32)[15:28])
+    rows = [torch.cat([p, torch.zeros(3)])]
+    if lrec is None:
+        lrec = torch.zeros((0, 8), dtype=f32, device=device)
+        loffs = lcnt = torch.zeros(ncells, dtype=i32, device=device)
+        lkmax = torch.full((ncells,), -BIG_DEPTH, dtype=f32, device=device)
+    lights = [(lrec, loffs, lcnt, lkmax)]
+    for lrow, lrec_k, loffs_k, lcnt_k, lkmax_k in extra_lights or ():
+        rows.append(torch.as_tensor(np.asarray(lrow, np.float32)))
+        lights.append((lrec_k, loffs_k, lcnt_k, lkmax_k))
+    recs, offs, cnts, kms = [], [], [], []
+    base = 0
+    for lrec_k, loffs_k, lcnt_k, lkmax_k in lights:
+        if lrec_k.dim() != 2 or lrec_k.shape[1] != 8:
+            raise ValueError(f"light records must be (M, 8), got "
+                             f"{tuple(lrec_k.shape)}")
+        for t, name in ((loffs_k, "loffs"), (lcnt_k, "lcnt")):
+            if tuple(t.shape) != (ncells,):
+                raise ValueError(f"{name} must be ({ncells},), got "
+                                 f"{tuple(t.shape)}")
+        if lkmax_k is None:
+            lkmax_k = torch.full((ncells,), BIG, dtype=f32, device=device)
+        recs.append(lrec_k.to(device=device, dtype=f32))
+        offs.append(loffs_k.to(device=device, dtype=torch.int64) + base)
+        cnts.append(lcnt_k.to(device=device, dtype=i32))
+        kms.append(lkmax_k.to(device=device, dtype=f32))
+        base += lrec_k.shape[0]
+    if base >= 2**31:
+        raise ValueError(f"{base} light records overflow the int32 offsets")
+    return LightStack(
+        torch.stack(rows).to(device),
+        recs[0].contiguous() if len(recs) == 1 else torch.cat(recs),
+        torch.stack(offs).to(i32), torch.stack(cnts), torch.stack(kms),
+    )
 
 
 def hash_jitter(tile, s, seed, pix):
@@ -243,7 +338,22 @@ def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
     return blocked
 
 
-def _render_batch(chunk_data, zmin, lrec, loffs, lcnt, lkmax, p, tiles, *,
+def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps):
+    """Shadow test of the hit points ``h[i].flatten()[sel]`` toward light
+    ``l`` (row ``lp``): 1.0 where an occluder blocks the point, else 0.0."""
+    hx, hy, hz = (x.flatten()[sel] for x in h)
+    u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9]
+    v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10]
+    tau = hx * lp[0] + hy * lp[1] + hz * lp[2]
+    gx = torch.clamp(torch.floor(u * lp[11]), 0, grid_n - 1)
+    gy = torch.clamp(torch.floor(v * lp[11]), 0, grid_n - 1)
+    cell = (gy * grid_n + gx).to(torch.int64) + l * grid_n * grid_n
+    return _shadow_blocked(lights.lrec, lights.loffs.view(-1),
+                           lights.lcnt.view(-1), lights.lkmax.view(-1),
+                           u, v, tau, cell, eps)
+
+
+def _render_batch(chunk_data, zmin, lights, p, tiles, *,
                   S, seed, tiles_x, grid_n, eps, perspective, shadows, inv_s):
     o, d, tcap = _raygen(p, tiles, S, seed, tiles_x, perspective)
     bt, bidx = _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps,
@@ -264,23 +374,32 @@ def _render_batch(chunk_data, zmin, lrec, loffs, lcnt, lkmax, p, tiles, *,
     facing = n[0] * d[0] + n[1] * d[1] + n[2] * d[2]
     flip = torch.where(facing > 0.0, -1.0, 1.0)
     n = [x * flip for x in n]
-    inten = n[0] * p[15] + n[1] * p[16] + n[2] * p[17]
-    litb = (inten > MINCONTRIB) & ~missed
-    lit = litb.to(torch.float32)
-    filt = torch.ones_like(inten)
-    if shadows:
-        sel = torch.nonzero(litb.flatten()).flatten()
-        hx, hy, hz = (x.flatten()[sel] for x in h)
-        u = hx * p[18] + hy * p[19] + hz * p[20] - p[24]
-        v = hx * p[21] + hy * p[22] + hz * p[23] - p[25]
-        tau = hx * p[15] + hy * p[16] + hz * p[17]
-        gx = torch.clamp(torch.floor(u * p[26]), 0, grid_n - 1)
-        gy = torch.clamp(torch.floor(v * p[26]), 0, grid_n - 1)
-        cell = (gy * grid_n + gx).to(torch.int64)
-        blocked = _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell,
-                                  eps)
-        filt = filt.flatten().index_put((sel,), 1.0 - blocked).view(T, R)
-    sh = lit * inten * p[27] * filt
+    # per light, in light order: sh += lit * (n.L) * lightcol * (1 - blocked)
+    sh = None
+    for l in range(lights.lparams.shape[0] if lights is not None else 1):
+        lp = p[15:27] if l == 0 else lights.lparams[l]
+        lightcol = p[27] if l == 0 else lp[12]
+        inten = n[0] * lp[0] + n[1] * lp[1] + n[2] * lp[2]
+        litb = (inten > MINCONTRIB) & ~missed
+        lit = litb.to(torch.float32)
+        filt = torch.ones_like(inten)
+        if shadows and l == 0:
+            # the primary light: every sample's own hit point
+            sel = torch.nonzero(litb.flatten()).flatten()
+            blocked = _light_blocked(lights, lp, l, h, sel, grid_n=grid_n,
+                                     eps=eps)
+            filt = filt.flatten().index_put((sel,), 1.0 - blocked).view(T, R)
+        elif shadows:
+            # a sky light: sample 0's hit point, shared by every sample
+            h0 = [x[:, :P] for x in h]
+            sel = torch.nonzero(litb[:, :P].flatten()).flatten()
+            blocked = _light_blocked(lights, lp, l, h0, sel, grid_n=grid_n,
+                                     eps=eps)
+            filt0 = torch.ones((T * P,), dtype=torch.float32, device=p.device)
+            filt0 = filt0.index_put((sel,), 1.0 - blocked).view(T, P)
+            filt = filt0.repeat(1, S)
+        term = lit * inten * lightcol * filt
+        sh = term if sh is None else sh + term
     shade = 0.8 * sh + p[38]
     out = []
     for ch in range(3):
@@ -304,15 +423,26 @@ def _tile_range(tiles, nb: int):
     return lo, hi
 
 
-def mega_render_plain(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
-                      *, S: int, tiles_x: int, grid_n: int, eps: float,
-                      perspective: bool, shadows: bool,
-                      tiles=None) -> torch.Tensor:
+def _nlights(lights, shadows: bool) -> int:
+    if lights is None:
+        if shadows:
+            raise ValueError("shadows need a LightStack (stack_lights)")
+        return 1
+    if not isinstance(lights, LightStack):
+        raise ValueError(f"lights must be a LightStack, got {type(lights).__name__}")
+    return lights.lparams.shape[0]
+
+
+def mega_render_plain(chunk_data, zmin, lights, params, seed, *, S: int,
+                      tiles_x: int, grid_n: int, eps: float, perspective: bool,
+                      shadows: bool, tiles=None) -> torch.Tensor:
     """Plain torch version of the kernel: (ntiles, 3*256) f32 [R|G|B] rows
     for the tiles in ``tiles`` = (first, end), all tiles by default.
 
-    Runs on the inputs' device; tiles go through in batches that keep each
-    (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
+    ``lights`` is a ``LightStack`` (None: the primary light alone, without
+    shadows).  Runs on the inputs' device; tiles go through in batches that
+    keep each (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
+    _nlights(lights, shadows)
     nb, nchunks, _, ch = chunk_data.shape
     lo, hi = _tile_range(tiles, nb)
     dev = chunk_data.device
@@ -323,7 +453,7 @@ def mega_render_plain(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
     for t0 in range(lo, hi, batch):
         tiles = torch.arange(t0, min(hi, t0 + batch), device=dev)
         out[t0 - lo:t0 - lo + tiles.shape[0]] = _render_batch(
-            chunk_data, zmin, lrec, loffs, lcnt, lkmax, p, tiles,
+            chunk_data, zmin, lights, p, tiles,
             S=S, seed=seed, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
             perspective=perspective, shadows=shadows, inv_s=inv_s,
         )
@@ -345,10 +475,9 @@ def _check(t, name, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def mega_render_cuda(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
-                     *, S: int, tiles_x: int, grid_n: int, eps: float,
-                     perspective: bool, shadows: bool,
-                     tiles=None) -> torch.Tensor:
+def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
+                     tiles_x: int, grid_n: int, eps: float, perspective: bool,
+                     shadows: bool, tiles=None) -> torch.Tensor:
     """Launch the hand kernel on CUDA tensors: (ntiles, 3*256) f32 rows
     for the tiles in ``tiles`` = (first, end), all tiles by default."""
     from ._build import load_mega_render
@@ -363,6 +492,7 @@ def mega_render_cuda(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
                          f"{tuple(chunk_data.shape)}")
     if S < 1:
         raise ValueError(f"S must be >= 1, got {S}")
+    nl = _nlights(lights, shadows)
     f32, i32 = torch.float32, torch.int32
     _check(chunk_data, "chunk_data", f32, 4, dev)
     _check(zmin, "zmin", f32, 2, dev)
@@ -371,23 +501,32 @@ def mega_render_cuda(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
     p = torch.as_tensor(params, dtype=f32, device=dev).contiguous()
     if p.shape != (64,):
         raise ValueError(f"params must be (64,), got {tuple(p.shape)}")
-    if shadows:
+    if lights is None:
+        # the kernel reads no light input; hand it valid dummy pointers
+        lparams = lrec = torch.zeros((1, 16), dtype=f32, device=dev)
+        loffs = lcnt = torch.zeros((1, 1), dtype=i32, device=dev)
+        lkmax = torch.zeros((1, 1), dtype=f32, device=dev)
+    else:
+        lparams, lrec, loffs, lcnt, lkmax = lights
         ncells = grid_n * grid_n
+        _check(lparams, "lparams", f32, 2, dev)
+        if tuple(lparams.shape) != (nl, 16):
+            raise ValueError(f"lparams must be ({nl}, 16), got "
+                             f"{tuple(lparams.shape)}")
+        if nl > MAX_LIGHTS:
+            raise ValueError(f"{nl} lights given; the kernel takes at most "
+                             f"{MAX_LIGHTS}")
         _check(lrec, "lrec", f32, 2, dev)
         if lrec.shape[1] != 8:
             raise ValueError(f"lrec must be (M, 8), got {tuple(lrec.shape)}")
         for t, name, dt in ((loffs, "loffs", i32), (lcnt, "lcnt", i32),
                             (lkmax, "lkmax", f32)):
-            _check(t, name, dt, 1, dev)
-            if t.shape[0] != ncells:
-                raise ValueError(f"{name} must have {ncells} cells, got {t.shape[0]}")
+            _check(t, name, dt, 2, dev)
+            if tuple(t.shape) != (nl, ncells):
+                raise ValueError(f"{name} must be ({nl}, {ncells}), got "
+                                 f"{tuple(t.shape)}")
         if lrec.shape[0] == 0:
             lrec = torch.zeros((1, 8), dtype=f32, device=dev)
-    else:
-        # the kernel reads no shadow input; hand it valid dummy pointers
-        lrec = torch.zeros((1, 8), dtype=f32, device=dev)
-        loffs = lcnt = torch.zeros(1, dtype=i32, device=dev)
-        lkmax = torch.zeros(1, dtype=f32, device=dev)
     lo, hi = _tile_range(tiles, nb)
     out = torch.empty((hi - lo, 3 * P), dtype=f32, device=dev)
     if hi == lo:
@@ -396,11 +535,12 @@ def mega_render_cuda(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
     ptr = ctypes.c_void_p
     with torch.cuda.device(dev):   # the launch goes to the tensors' card
         rc = lib.mega_render_launch(
-            ptr(p.data_ptr()), ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
+            ptr(p.data_ptr()), ptr(lparams.data_ptr()),
+            ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
             ptr(lrec.data_ptr()), ptr(loffs.data_ptr()), ptr(lcnt.data_ptr()),
             ptr(lkmax.data_ptr()), ptr(out.data_ptr()),
             hi - lo, lo, nchunks, tiles_x, S, int(seed) & 0xFFFFFFFF, grid_n,
-            eps, float(np.float32(1.0 / S)), int(bool(perspective)),
+            nl, eps, float(np.float32(1.0 / S)), int(bool(perspective)),
             int(bool(shadows)), ptr(torch.cuda.current_stream(dev).cuda_stream),
         )
     if rc != 0:
@@ -418,22 +558,21 @@ def mega_render(chunk_data, *args, **kwargs) -> torch.Tensor:
     raise ValueError(f"no render path for device {chunk_data.device}")
 
 
-def render_image_mega(chunk_data, zmin, lrec, loffs, lcnt, lkmax, params,
-                      seed, *, S: int, width: int, height: int, tiles_x: int,
-                      tiles_y: int, grid_n: int, eps: float,
-                      perspective: bool, shadows: bool,
-                      quantized: bool = False) -> torch.Tensor:
+def render_image_mega(chunk_data, zmin, lights, params, seed, *, S: int,
+                      width: int, height: int, tiles_x: int, tiles_y: int,
+                      grid_n: int, eps: float, perspective: bool,
+                      shadows: bool, quantized: bool = False) -> torch.Tensor:
     """Full-frame render -> (height, width, 3) f32 RGB, or uint8 (rounded)
     when ``quantized`` (the device serving path).
 
     ``chunk_data`` / ``zmin`` come from ``gather_chunk_data`` and
-    ``build_screen_bins``; ``lrec, loffs, lcnt, lkmax`` from
-    ``build_light_records`` (ignored when ``shadows`` is False)."""
+    ``build_screen_bins``; ``lights`` from ``stack_lights`` (None: no
+    shadows, primary light only)."""
     nb = chunk_data.shape[0]
     if nb != tiles_x * tiles_y:
         raise ValueError(f"{nb} tiles given for a {tiles_x}x{tiles_y} grid")
     out = mega_render(
-        chunk_data, zmin, lrec, loffs, lcnt, lkmax, params, seed,
+        chunk_data, zmin, lights, params, seed,
         S=S, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
         perspective=perspective, shadows=shadows,
     )

@@ -2,15 +2,23 @@
 
 Port of ``mdapy_tpu/render/render.py`` (``TachyonRender`` :75, ``render``
 :164) restricted to the ported slice: opaque spheres, one directional light
-with shadows, AA, no ambient occlusion.  ``backend="cuda"`` runs the
+with shadows, AA, and the fast ambient occlusion of scenes above
+``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
 acceleration builds as torch ops on the card and the frame through the hand
 CUDA kernel; ``backend="cpu"`` runs the same builds on the CPU and the
 kernel's plain torch version, in float32.
 
+Fast AO (``render.py:551-637``): 2*K2 directional sky lights, K2 =
+ao_samples // 2 Fibonacci hemisphere directions and their opposites, each
+with its own light-grid CSR records, join the primary light in the same
+launch, so one closest-hit traversal serves them all.  Their structures are
+world-space and keyed by the scene alone, so a camera move reuses them.
+
 What the slice does not cover raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: ambient occlusion (B1c), bond and box-edge
-cylinders (B1d), alpha < 1 (B1e), and candidate records past the memory
-budget (B1f).
+ROADMAP item that brings it: AO on scenes of at most
+``AO_EXACT_MAX_SPHERES`` padded spheres (the exact tracer, A6), bond and
+box-edge cylinders (B1d), alpha < 1 (B1e), and candidate records past the
+memory budget (B1f).
 """
 
 from __future__ import annotations
@@ -25,15 +33,46 @@ from .accel import build_light_bins, build_light_records, build_screen_bins
 from .camera import CameraParams, auto_camera, camera_frame
 from .config import RenderConfig, quantize
 from .gather import gather_chunk_data
-from .megakernel import TILE_PX, build_mega_params, render_image_mega
+from .megakernel import (
+    TILE_PX, build_mega_params, light_row, render_image_mega, stack_lights,
+)
 from .scene import build_scene
 
-__all__ = ["TachyonRender", "CameraParams", "save_image"]
+__all__ = ["TachyonRender", "CameraParams", "build_ao_lights", "save_image"]
 
 LIGHT_GRID = 32        # shadow grid cells per side, as the JAX renderer uses
 # bytes of (nb, nchunks, 8, 128) f32 candidate records one frame may gather;
 # past it the banded variant (ROADMAP B1f) is needed
 RECORD_BUDGET_BYTES = 16 << 30
+# padded sphere counts up to this take the exact AO tracer (ROADMAP A6) in
+# the JAX renderer; fast AO applies above it (render.py:329-333)
+AO_EXACT_MAX_SPHERES = 20000
+
+
+def _fib_hemisphere(k: int) -> np.ndarray:
+    """k stratified unit directions on the upper hemisphere (Fibonacci)."""
+    i = np.arange(k, dtype=np.float64) + 0.5
+    phi = i * (np.pi * (3.0 - np.sqrt(5.0)))
+    z = i / k
+    r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+    return np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=1)
+
+
+def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
+                    rmax: float, grid: int = LIGHT_GRID) -> list:
+    """The fast-AO sky lights as ``stack_lights`` extra entries
+    ``(lrow, lrec, loffs, lcnt, lkmax)``: the K2 = ao_samples // 2 hemisphere
+    directions, then their opposites, each of weight 4 / (2 K2) *
+    ao_brightness (``render.py:569-626``)."""
+    k2 = max(1, int(ao_samples) // 2)
+    hemi = _fib_hemisphere(k2)
+    lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
+    lights = []
+    for dk in np.concatenate([hemi, -hemi], axis=0):
+        lb = build_light_bins(scene, dk, grid=grid)
+        lrec = build_light_records(lb, scene)
+        lights.append((light_row(dk, lb, lightcol, rmax), *lrec))
+    return lights
 
 
 def save_image(path: str, img: np.ndarray) -> None:
@@ -82,10 +121,6 @@ class TachyonRender:
                 "TachyonRender(backend='cuda') needs a CUDA device, and "
                 "torch.cuda.is_available() is False"
             )
-        if ao:
-            raise NotImplementedError(
-                "ambient occlusion is not ported yet (ROADMAP B1c); pass ao=False"
-            )
         self._backend = backend
         self._device = torch.device("cuda" if backend == "cuda" else "cpu")
         bg = tuple(float(v) for v in background)
@@ -94,7 +129,7 @@ class TachyonRender:
             aa_samples=int(aa_samples),
             aa_enabled=bool(antialiasing),
             ao_samples=int(ao_samples),
-            ao_enabled=False,
+            ao_enabled=bool(ao),
             shadows_enabled=bool(shadows),
             direct_light_enabled=True,
             ao_brightness=float(ao_brightness),
@@ -108,6 +143,8 @@ class TachyonRender:
         self._scene = None
         self._accel_key = None
         self._accel = None
+        self._ao_key = None
+        self._ao = None
 
     @property
     def backend(self) -> str:
@@ -149,7 +186,18 @@ class TachyonRender:
         self._input_refs = refs
         return self._scene_key, self._scene
 
-    def _accel_for(self, scene_key, scene, lo, hi, camera, width, height):
+    def _ao_for(self, scene_key, scene, radii):
+        """The AO sky lights, rebuilt only when the scene changes."""
+        if scene_key != self._ao_key:
+            cfg = self._cfg
+            rmax = float(radii.max()) if len(radii) else 0.0
+            self._ao = build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
+                                       rmax, grid=LIGHT_GRID)
+            self._ao_key = scene_key
+        return self._ao
+
+    def _accel_for(self, scene_key, scene, lo, hi, camera, width, height,
+                   radii):
         """Per-view structures, rebuilt only when the scene or view changes."""
         key = (scene_key, repr((camera.__dict__, width, height)))
         if key == self._accel_key:
@@ -168,10 +216,18 @@ class TachyonRender:
         lb = build_light_bins(scene, frame["light_dir"], grid=LIGHT_GRID)
         chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
                                        scene.sph_radius, scene.sph_color)
-        lrec = (build_light_records(lb, scene) if cfg.shadows_enabled
-                else (None, None, None, None))
         params = build_mega_params(frame, lb, lo, hi, cfg)
-        self._accel = (frame, bins, chunk_data, lrec, params)
+        extra = (self._ao_for(scene_key, scene, radii) if cfg.ao_enabled
+                 else None)
+        lights = None
+        if cfg.shadows_enabled or extra:
+            # with AO and no shadows the primary light gets an empty CSR and
+            # the sweeps stay on for the sky lights (render.py:627-637)
+            primary = (build_light_records(lb, scene) if cfg.shadows_enabled
+                       else (None, None, None, None))
+            lights = stack_lights(params, *primary, extra_lights=extra,
+                                  grid_n=LIGHT_GRID, device=self._device)
+        self._accel = (frame, bins, chunk_data, lights, params)
         self._accel_key = key
         return self._accel
 
@@ -217,17 +273,23 @@ class TachyonRender:
             camera = auto_camera(
                 positions, max_radius=float(radii.max()) if len(radii) else 0.0)
 
-        scene_key, (scene, lo, hi) = self._scene_for(positions, colors, radii)
-        frame, bins, chunk_data, lrec, params = self._accel_for(
-            scene_key, scene, lo, hi, camera, int(width), int(height))
         cfg = self._cfg
+        scene_key, (scene, lo, hi) = self._scene_for(positions, colors, radii)
+        if cfg.ao_enabled and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES:
+            raise NotImplementedError(
+                f"ambient occlusion on {scene.sph_center.shape[0]} padded "
+                f"spheres (at most {AO_EXACT_MAX_SPHERES}) takes the exact AO "
+                "tracer, which is not ported yet (ROADMAP A6); pass ao=False"
+            )
+        frame, bins, chunk_data, lights, params = self._accel_for(
+            scene_key, scene, lo, hi, camera, int(width), int(height), radii)
         S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
         img_f = render_image_mega(
-            chunk_data, bins.sph_zmin, *lrec, params, self._seed,
+            chunk_data, bins.sph_zmin, lights, params, self._seed,
             S=S, width=int(width), height=int(height),
             tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
             eps=cfg.eps, perspective=bool(frame["perspective"]),
-            shadows=cfg.shadows_enabled, quantized=device_output,
+            shadows=lights is not None, quantized=device_output,
         )
         if device_output:
             return img_f

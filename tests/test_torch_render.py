@@ -99,10 +99,11 @@ def test_kernel_slice_matches_interpret(preset, aa, shadows):
 
     tb = screen_bins_from_numpy(bins.sph_chunks, bins.sph_zmin, bins.tiles_x,
                                 bins.tiles_y)
-    tl = light_records_from_numpy(*lrec)
+    lights = tmega.stack_lights(params, *light_records_from_numpy(*lrec),
+                                grid_n=GRID)
     before = tmega.launches
     img = tmega.render_image_mega(
-        torch.as_tensor(np.array(cd)), tb.sph_zmin, *tl, params, 0, **kw)
+        torch.as_tensor(np.array(cd)), tb.sph_zmin, lights, params, 0, **kw)
     assert tmega.launches == before          # CPU tensors: the plain version
     assert img.shape == (H, W, 3) and img.dtype == torch.float32
     d = np.abs(img.numpy() - ref)
@@ -112,7 +113,7 @@ def test_kernel_slice_matches_interpret(preset, aa, shadows):
     assert d.mean() < 1e-4
 
     q = tmega.render_image_mega(
-        torch.as_tensor(np.array(cd)), tb.sph_zmin, *tl, params, 0,
+        torch.as_tensor(np.array(cd)), tb.sph_zmin, lights, params, 0,
         quantized=True, **kw)
     assert q.dtype == torch.uint8
     np.testing.assert_array_equal(
@@ -156,9 +157,18 @@ def test_render_matches_jax_renderer():
 
 
 def test_unported_options_raise(monkeypatch):
+    from mdapy_tpu_torch.render import render as trender
+
     pos, colors, radii = _fcc_scene(2)
-    with pytest.raises(NotImplementedError, match="B1c"):
-        mdapy_tpu_torch.TachyonRender(backend="cpu", ao=True)
+    # AO at or below the fast-AO threshold takes the exact tracer (A6)
+    ao = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=True)
+    with pytest.raises(NotImplementedError, match="A6"):
+        ao.render(pos, colors, radii, width=32, height=32)
+    half = colors.copy()
+    half[0, 3] = 0.5
+    monkeypatch.setattr(trender, "AO_EXACT_MAX_SPHERES", 0)
+    with pytest.raises(NotImplementedError, match="B1e"):
+        ao.render(pos, half, radii, width=32, height=32)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     edges = np.zeros((1, 2, 3))
     edges[0, 1] = 1.0
@@ -166,12 +176,8 @@ def test_unported_options_raise(monkeypatch):
         ren.render(pos, colors, radii, bond_edges=edges, width=32, height=32)
     with pytest.raises(NotImplementedError, match="B1d"):
         ren.render(pos, colors, radii, box_edges=edges, width=32, height=32)
-    half = colors.copy()
-    half[0, 3] = 0.5
     with pytest.raises(NotImplementedError, match="B1e"):
         ren.render(pos, half, radii, width=32, height=32)
-    from mdapy_tpu_torch.render import render as trender
-
     monkeypatch.setattr(trender, "RECORD_BUDGET_BYTES", 1024)
     with pytest.raises(NotImplementedError, match="B1f"):
         ren.render(pos, colors, radii, width=32, height=32)
@@ -183,8 +189,8 @@ def test_cuda_backend_refuses_without_card(monkeypatch):
         mdapy_tpu_torch.TachyonRender(backend="cuda", ao=False)
     with pytest.raises(ValueError, match="CUDA"):
         tmega.mega_render_cuda(
-            torch.zeros((1, 1, 8, 128)), torch.zeros((1, 1)), None, None,
-            None, None, np.zeros(64, np.float32), 0, S=1, tiles_x=1,
+            torch.zeros((1, 1, 8, 128)), torch.zeros((1, 1)), None,
+            np.zeros(64, np.float32), 0, S=1, tiles_x=1,
             grid_n=1, eps=4e-4, perspective=True, shadows=False)
 
 
@@ -201,6 +207,10 @@ def test_port_imports_no_jax():
         "img = m.TachyonRender(backend='cpu', ao=False).render("
         "pos, col, rad, width=48, height=32)\n"
         "assert len(pos) == 32 and img.shape == (32, 48, 4) and img.std() > 1\n"
+        "m.render.render.AO_EXACT_MAX_SPHERES = 0\n"
+        "img = m.TachyonRender(backend='cpu', ao_samples=4).render("
+        "pos, col, rad, width=48, height=32)\n"
+        "assert img.shape == (32, 48, 4) and img.std() > 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
