@@ -14,7 +14,12 @@ Phases (any failure exits non-zero before the last line is printed):
    (b) orthographic ("top"), S = 1, shadows; (c) perspective, S = 1, no
    shadows; and with the fast-AO sky lights: (d) perspective, S = 3,
    shadows, ao_samples = 12 (13 lights); (e) orthographic, S = 1, no
-   primary shadows (its empty CSR), ao_samples = 4.  At most 4 pixels may
+   primary shadows (its empty CSR), ao_samples = 4.  With bonds and box
+   edges (cylinders and rings), on a 54-atom 3x3x3 BCC block with its
+   bonds and cell, as ``TachyonRender.render`` hands them to the kernel:
+   (f) perspective, S = 3, shadows; (g) orthographic, S = 1, ao_samples =
+   4 (5 lights, five occluder tables); (h) a box three times the size of
+   the atoms, so that some tiles hold only cylinders.  At most 4 pixels may
    differ by more than 1e-3 in a channel, and the mean difference stays
    below 1e-4.
 3. The headline frame at full size, one light: the 1,000,188-atom FCC block
@@ -35,6 +40,26 @@ Phases (any failure exits non-zero before the last line is printed):
    camera move that reuses the scene-keyed AO lights, peak memory, and the
    kernel against its plain version on the whole frame, both timed over a
    band of 2 tile rows.
+5. BASELINE config 2: BCC Fe (a = 2.8665 A) in 6x6x6 periodic cells, 432
+   atoms, bonds between the pairs closer than 2.6 A (a periodic scipy
+   cKDTree), atom radius 0.5 A, bond radius 0.2 A, the default colours,
+   the "perspective" preset camera, 1920x1080, AA 12 (13 samples),
+   primary-light shadows: the primitive counts and the widest tile, one
+   frame through ``TachyonRender.render_system`` on a stand-in system
+   object, then the first frame and 5 warm ``device_output=True`` frames of
+   ``render`` with the same edges, Grays/s = W*H*S*2 / warm s, the layers,
+   the kernel split, and the kernel against its plain version on the whole
+   frame, both timed over a band of 2 tile rows.
+6. Config 3 as ``render_system`` draws it by default: the phase-4
+   polycrystal with its 230 A periodic cell's 12 edges (36 primitives, 13
+   lights with an occluder table each): its warm frame beside phase 4's,
+   the kernel split, the light grids beside phase 4's, and the kernel
+   against its plain version over a band.
+
+Phase 5 runs before phase 4, and phase 6 after it, on its polycrystal.  The
+headline frame and config 2 also print the bound of the whole frame: the
+tests the plain version counts there (those the early exits leave) at the
+H100's fp32 peak, against the bytes they must move at its HBM rate.
 
 The last three lines are the kernel table (JSON), the card's name and power
 limit as nvidia-smi reports them, and a JSON status line.
@@ -124,6 +149,106 @@ def voronoi_polycrystal(box=230.0, grains=15, seed=1, a=3.615, min_dist=2.0):
     return pos[keep]
 
 
+def bcc_positions(n_cells: int, a: float = 2.8665) -> np.ndarray:
+    """BCC block of 2 * n_cells**3 atoms in [0, n_cells * a)^3."""
+    frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+    cells = np.mgrid[0:n_cells, 0:n_cells, 0:n_cells].reshape(3, -1).T
+    return (frac[None] + cells[:, None]).reshape(-1, 3) * a
+
+
+class Cell:
+    """A periodic cell as ``render_system`` reads it."""
+
+    def __init__(self, lengths, origin=(0.0, 0.0, 0.0)):
+        self.matrix = np.diag(np.asarray(lengths, np.float64) * np.ones(3))
+        self.origin = np.asarray(origin, np.float64)
+        self.boundary = np.array([1, 1, 1])
+
+
+class Columns(dict):
+    """Per-atom columns as ``render_system`` reads them (``.columns``)."""
+
+    @property
+    def columns(self):
+        return list(self)
+
+
+class StandIn:
+    """The part of a System that ``render_system`` reads: positions, cell,
+    atom count, per-atom columns and bonds."""
+
+    def __init__(self, pos, cell, bond=None, element=None):
+        self._pos = pos
+        self.box = cell
+        self.N = len(pos)
+        self.bond = bond
+        self.data = Columns() if element is None else Columns(
+            element=np.array([element] * len(pos)))
+
+    def get_positions(self):
+        return self._pos
+
+
+def bcc_system(n_cells: int, a: float = 2.8665, rc: float = 2.6) -> StandIn:
+    """BCC Fe in n_cells^3 periodic cells with its bonds (pairs closer than
+    rc, from a periodic cKDTree)."""
+    from scipy.spatial import cKDTree
+
+    pos = bcc_positions(n_cells, a)
+    side = n_cells * a
+    pairs = cKDTree(pos, boxsize=side).query_pairs(rc, output_type="ndarray")
+    return StandIn(pos, Cell(side), bond=pairs.astype(np.int64), element="Fe")
+
+
+# fp32 operations counted per test of each kind (the kernel's arithmetic,
+# rounded): sphere candidate, cylinder/ring record, shadow cell record,
+# occluder-table cull, occluder test
+OPS = {"sphere": 8, "cylring": 24, "record": 8, "cull": 20, "occluder": 25}
+PEAK_FP32 = 67e12     # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def bound(work: dict, nbytes: float):
+    """Least time (ms) the card could take for the counted work, and what
+    bounds it: operations over the fp32 peak against bytes over the HBM rate."""
+    ops = sum(OPS[k] * v for k, v in work.items())
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def band_bytes(work: dict, tiles: int, S: int, other=None, lights=None) -> float:
+    """Bytes a band's render must move, each input read once and the output
+    written once: the candidate chunks its walks reached, its cyl/ring
+    records, the shadow records its walks read (at most the whole CSR), the
+    occluder tables, and the (tiles, 768) f32 output."""
+    n = 4096 * work.get("sphere", 0) / (S * 256 * 128) + tiles * 3072
+    if other is not None:
+        n += 64 * work.get("cylring", 0) / (S * 256)
+        if other.occ is not None:
+            n += other.occ.numel() * 4
+    if lights is not None:
+        n += 32 * min(work.get("record", 0), lights.lrec.shape[0])
+    return n
+
+
+def light_grid(lights) -> str:
+    """The light grids' cell edges and mean records per non-empty cell."""
+    cell = 1.0 / lights.lparams[:, 11]
+    cnt = lights.lcnt[lights.lcnt > 0].float()
+    return (f"cell edge {float(cell[0]):.3f} A (primary), {float(cell.mean()):.3f} A "
+            f"(mean of {cell.numel()} lights), {float(cnt.mean()):.1f} records per "
+            f"non-empty cell")
+
+
+def frame_bound(what, work, kernel_ms, nb, S, other=None, lights=None):
+    """Print the work the plain version counted on the whole frame and the
+    bound it sets, beside the kernel's full-frame time."""
+    b_ms, b_by, ops = bound(work, band_bytes(work, nb, S, other=other, lights=lights))
+    print(f"  {what} full frame: work {work}, {ops:.4g} fp32 operations, bound "
+          f"{b_ms:.4f} ms by {b_by}, kernel {kernel_ms:.3f} ms (roofline share "
+          f"{b_ms / kernel_ms:.2%})")
+
+
 def sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -171,10 +296,12 @@ def main() -> None:
     from mdapy_tpu_torch.render._build import load_mega_render
     from mdapy_tpu_torch.render.accel import (
         build_light_bins, build_light_records, build_screen_bins,
+        gather_other_records, occluder_records, other_table,
     )
     from mdapy_tpu_torch.render.camera import camera_frame
     from mdapy_tpu_torch.render.config import RenderConfig
     from mdapy_tpu_torch.render.gather import gather_chunk_data
+    from mdapy_tpu_torch.render.geometry import bond_edges, box_edges
     from mdapy_tpu_torch.render.scene import build_scene
 
     dev = torch.device("cuda")
@@ -247,6 +374,61 @@ def main() -> None:
                             f"{preset} S={aa + 1} shadows={shadows} "
                             f"ao_samples={ao} lights={nl}"))
 
+    # (f)-(h): bonds and box edges, on the inputs the front end builds
+    small = bcc_system(3)
+    colors_b = trender._default_colors(small)
+    radii_b = np.full(small.N, 0.5, np.float32)
+    bonds_b, _ = bond_edges(small.get_positions(), small.box, small.bond,
+                            colors_b, radii_b, 0.2)
+    lo_b, hi_b = small.get_positions().min(0), small.get_positions().max(0)
+    mid_b, ext_b = 0.5 * (lo_b + hi_b), hi_b - lo_b
+    big_cell = Cell(3 * ext_b, origin=mid_b - 1.5 * ext_b)
+    ao_exact = trender.AO_EXACT_MAX_SPHERES
+    trender.AO_EXACT_MAX_SPHERES = 0      # AO on 54 atoms (exact AO is A6)
+    for case, preset, aa, ao, cell in (("f", "perspective", 2, 0, small.box),
+                                       ("g", "top", 0, 4, small.box),
+                                       ("h", "perspective", 0, 0, big_cell)):
+        edges_c = box_edges(cell)
+        view_pts = np.r_[small.get_positions(), edges_c[:, 0]]
+        cam = preset_camera(preset, view_pts, max_radius=0.5)
+        ren_b = TachyonRender(backend="cuda", ao=ao > 0, ao_samples=max(ao, 2),
+                              aa_samples=aa, antialiasing=aa > 0)
+        ren_b.render(small.get_positions(), colors_b, radii_b, camera=cam,
+                     bond_edges=bonds_b, bond_radius=0.2, box_edges=edges_c,
+                     box_edge_radius=0.1, width=320, height=240)
+        (frame, bins, cd, lights, params), other = ren_b._accel, ren_b._other
+        nl = lights.lparams.shape[0]
+        if other is None or other.occ is None or other.occ.shape[0] != nl:
+            fail(f"[2{case}] the cylinders reached the kernel without "
+                 f"{nl} occluder tables")
+        if nl != (1 + 2 * (ao // 2) if ao else 1):
+            fail(f"[2{case}] {nl} lights stacked")
+        only = int(((bins.sph_zmin[:, 0] >= 1e17) & (bins.oth_count > 0)).sum())
+        if case == "h" and only == 0:
+            fail("[2h] no tile holds only cylinders")
+        kw = dict(S=aa + 1, tiles_x=bins.tiles_x, grid_n=32, eps=ren_b._cfg.eps,
+                  perspective=bool(frame["perspective"]), shadows=True,
+                  other=other)
+        args = (cd, bins.sph_zmin, lights, params, 0)
+        out_k = megakernel.mega_render_cuda(*args, **kw)
+        out_p = megakernel.mega_render_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if float(out_p.std()) < 0.02:
+            fail(f"[2{case}] the plain image is flat")
+        if case == "h":
+            cyl_only = (bins.sph_zmin[:, 0] >= 1e17) & (bins.oth_count > 0)
+            bg = torch.as_tensor(params[28:31], device=dev).repeat_interleave(256)
+            drawn = int(((out_k[cyl_only] - bg).abs().amax(1) > 0.05).sum())
+            print(f"  [2h] {only} tiles hold only cyl/rings, {drawn} of them "
+                  f"drawn")
+            if drawn == 0:
+                fail("[2h] the cylinder-only tiles are background")
+        errs.append(compare(out_k, out_p, f"[2{case}] {small.N} atoms + "
+                            f"{other.occ.shape[1]} cyl/rings 320x240 {preset} "
+                            f"S={aa + 1} ao_samples={ao} lights={nl}"))
+        del ren_b
+    trender.AO_EXACT_MAX_SPHERES = ao_exact
+
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
     pos, colors, radii = fcc_block(63)
@@ -310,15 +492,142 @@ def main() -> None:
     out_k = megakernel.mega_render_cuda(*args, **kw)
     out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
     errs.append(compare(out_k, out_p, f"[3] full frame (plain {t_plain:.2f} s)"))
+    frame_bound("headline", megakernel.plain_work(*args, **kw), kernel_ms, nb, S,
+                lights=lights_main)
     del out_k, out_p
     rows = 2
     ty0 = frame_bins.tiles_y // 2 - rows // 2
     band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
     band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
     plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    work = megakernel.plain_work(*args, tiles=band, **kw)
+    bound_ms, bound_by, ops = bound(work, band_bytes(
+        work, band[1] - band[0], S, lights=lights_main))
     print(f"  headline band of {band[1] - band[0]} tiles on {card}: kernel "
-          f"{band_ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{band_ms:.3f} ms, plain {plain_ms:.3f} ms; work {work}, {ops:.4g} "
+          f"fp32 operations, bound {bound_ms:.4f} ms by {bound_by}")
     del ren, args, chunk_data, lights_main, frame_bins, scene, bins, lb, cd, lrec
+    torch.cuda.empty_cache()
+
+    # ---- 5. BASELINE config 2: BCC Fe + bonds, AA 12 + shadows ---------------
+    width, height, S = 1920, 1080, 13
+    fe = bcc_system(6)
+    pos2 = fe.get_positions()
+    rad2 = np.full(fe.N, 0.5, np.float32)
+    cam2 = preset_camera("perspective", pos2, max_radius=0.5)
+    ren = TachyonRender(backend="cuda", ao=False)
+    torch.cuda.reset_peak_memory_stats()
+    megakernel.reset_launches()
+    rgba, t_sys = sync_time(lambda: ren.render_system(
+        fe, radii=rad2, camera=cam2, draw_bond=True, bond_radius=0.2,
+        width=width, height=height))
+    if rgba.shape != (height, width, 4) or not float(rgba[..., :3].std()) > 1:
+        fail(f"config 2 render_system frame {rgba.shape} is wrong or flat")
+    if megakernel.launches != 1 or ren._other is None:
+        fail(f"config 2's render_system frame took {megakernel.launches} kernel "
+             f"launches, cylinders {'absent' if ren._other is None else 'present'}")
+    colors2 = trender._default_colors(fe)
+    (geo, t_geo) = sync_time(lambda: (box_edges(fe.box), bond_edges(
+        pos2, fe.box, fe.bond, colors2, rad2, 0.2)[0]))
+    cell2, bonds2 = geo
+    ren = TachyonRender(backend="cuda", ao=False)
+
+    def config2_frame():
+        return ren.render(pos2, colors2, rad2, camera=cam2, bond_edges=bonds2,
+                          bond_radius=0.2, box_edges=cell2, width=width,
+                          height=height, device_output=True)
+
+    img, t_first = sync_time(config2_frame)
+    img, t_warm = sync_time(lambda: [config2_frame() for _ in range(WARM_FRAMES)][-1])
+    c2_launches = megakernel.launches
+    c2_peak = torch.cuda.max_memory_allocated()
+    t_warm /= WARM_FRAMES
+    (frame, frame_bins, chunk_data, lights, params), other = ren._accel, ren._other
+    n_cyl = int((ren._scene[0].cyl_radius > 0).sum())
+    n_ring = int((ren._scene[0].ring_rout > 0).sum())
+    widest = int(other.ocnt.max())
+    print(f"[5] config 2: {fe.N} atoms, {len(fe.bond)} bonds -> {len(bonds2)} "
+          f"segments + {len(cell2)} cell edges = {n_cyl} cylinders and "
+          f"{n_ring} rings, {n_cyl + n_ring} primitives (at most "
+          f"{trender.OTHER_SHADOW_MAX}); widest tile {widest} cyl/rings, the "
+          f"JAX renderer's per-tile measure {frame_bins.k_other} (at most "
+          f"{trender.OTHER_TILE_MAX}); route: hand kernel, cyl/ring template")
+    if (fe.N, len(fe.bond), n_cyl + n_ring) != (432, 1728, 5976):
+        fail("config 2 does not have 432 atoms, 1,728 bonds and 5,976 primitives")
+    if other is None or other.occ is None or tuple(other.occ.shape) != (1, 5976, 16):
+        fail("config 2 did not reach the kernel with its occluder table")
+    if c2_launches < 2 + WARM_FRAMES:
+        fail(f"config 2 launched the kernel {c2_launches} times")
+    if img.dtype != torch.uint8 or tuple(img.shape) != (height, width, 3):
+        fail(f"config 2 image is {img.dtype} {tuple(img.shape)}")
+    if not float(img.float().std()) > 1:
+        fail("the config 2 image is flat")
+    print(f"[5] {card}: config 2 {width}x{height} S={S} shadows: "
+          f"render_system frame {t_sys * 1e3:.1f} ms, first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames, {width * height * S * 2 / t_warm / 1e9:.4f} "
+          f"Grays/s, peak allocated {c2_peak} bytes, kernel launches "
+          f"{c2_launches}")
+
+    # layers, each bracketed by synchronize
+    scene, t_scene = sync_time(lambda: build_scene(
+        pos2, colors2, rad2, bond_edges=bonds2, bond_radius=0.2,
+        box_edges=cell2, device=dev))
+    bins, t_bins = sync_time(lambda: build_screen_bins(scene, frame, width, height))
+    table, t_table = sync_time(lambda: other_table(scene))
+    _, t_ogather = sync_time(lambda: gather_other_records(bins, table))
+    lb, t_lbins = sync_time(lambda: build_light_bins(scene, frame["light_dir"], grid=32))
+    _, t_occ = sync_time(lambda: occluder_records(table, lb))
+    _, t_lrec = sync_time(lambda: build_light_records(lb, scene))
+    _, t_gather = sync_time(lambda: gather_chunk_data(
+        bins.sph_chunks, scene.sph_center, scene.sph_radius, scene.sph_color))
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, other=other)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    c2_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    # the split: closest hit with the cyl/ring pass, + the cell walks, + the
+    # occluder tables
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    walk_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        *args, **dict(kw, other=other._replace(occ=None))), 5)
+    print(f"  layers: host geometry {t_geo * 1e3:.1f} ms, scene "
+          f"{t_scene * 1e3:.1f} ms, screen bins (all kinds) {t_bins * 1e3:.1f} "
+          f"ms, cyl/ring table {t_table * 1e3:.1f} ms, cyl/ring gather "
+          f"{t_ogather * 1e3:.1f} ms, light bins {t_lbins * 1e3:.1f} ms, "
+          f"occluder table {t_occ * 1e3:.1f} ms, light records "
+          f"{t_lrec * 1e3:.1f} ms, sphere gather {t_gather * 1e3:.1f} ms, "
+          f"kernel (full frame) {c2_kernel_ms:.3f} ms")
+    print(f"  kernel split: closest hit + cyl/ring pass + shading "
+          f"{hit_ms:.3f} ms, cell walks +{walk_ms - hit_ms:.3f} ms, occluder "
+          f"tables +{c2_kernel_ms - walk_ms:.3f} ms")
+    print(f"  tiles {frame_bins.sph_zmin.shape[0]}, live "
+          f"{int(((frame_bins.sph_zmin[:, 0] < 1e17) | (other.ocnt > 0)).sum())}, "
+          f"cyl/ring records {other.orec.shape[0]} (mean "
+          f"{float(other.ocnt[other.ocnt > 0].float().mean()):.1f} a live tile), "
+          f"light records {lights.lrec.shape[0]}")
+    del scene, bins, table, lb
+
+    # kernel vs plain on the whole frame, then both over a band of 2 tile rows
+    out_k = megakernel.mega_render_cuda(*args, **kw)
+    out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
+    errs.append(compare(out_k, out_p, f"[5] config 2 full frame (plain {t_plain:.2f} s)"))
+    frame_bound("config 2", megakernel.plain_work(*args, **kw), c2_kernel_ms,
+                frame_bins.sph_zmin.shape[0], S, other=other, lights=lights)
+    del out_k, out_p
+    ty0 = frame_bins.tiles_y // 2 - rows // 2
+    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
+    c2_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
+    c2_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    work = megakernel.plain_work(*args, tiles=band, **kw)
+    c2_bound_ms, c2_bound_by, ops = bound(work, band_bytes(
+        work, band[1] - band[0], S, other=other, lights=lights))
+    print(f"  config 2 band of {band[1] - band[0]} tiles on {card}: kernel "
+          f"{c2_band_ms:.3f} ms, plain {c2_plain_ms:.3f} ms; work {work}, "
+          f"{ops:.4g} fp32 operations, bound {c2_bound_ms:.4f} ms by "
+          f"{c2_bound_by}")
+    del ren, args, chunk_data, lights, frame_bins, other, img, _
     torch.cuda.empty_cache()
 
     # ---- 4. BASELINE config 3: ~1M-atom polycrystal with fast AO ------------
@@ -353,6 +662,7 @@ def main() -> None:
     t_warm /= WARM_FRAMES
     lights = ren._accel[3]
     nl = lights.lparams.shape[0]
+    grid_note = light_grid(lights)
     rays = width * height * (2 * S + K)
     print(f"[4] {card}: config 3, {n_atoms} atoms {width}x{height} S={S} "
           f"shadows + AO {K} sky lights ({nl} lights): first frame "
@@ -449,18 +759,91 @@ def main() -> None:
           f"{ao_band_ms:.3f} ms, plain {ao_plain_ms:.3f} ms")
     print(f"[3+4] {card}: headline (1 light) warm {headline_warm_ms:.3f} ms/frame, "
           f"config 3 (AO) warm {t_warm * 1e3:.3f} ms/frame")
+    config3_warm_ms = t_warm * 1e3
+    del ren, args, chunk_data, lights, frame_bins
+    torch.cuda.empty_cache()
+
+    # ---- 6. config 3 as render_system draws it: the polycrystal's cell -------
+    poly = StandIn(pos, Cell(230.0))
+    ren = TachyonRender(backend="cuda", ao=True, ao_samples=K, aa_samples=AA,
+                        background=(1.0, 1.0, 1.0))
+    megakernel.reset_launches()
+    rgba, t_first = sync_time(lambda: ren.render_system(
+        poly, colors=colors, radii=radii, camera=cam, width=width,
+        height=height))
+    cell_edges = box_edges(poly.box)
+
+    def boxed_frame():
+        return ren.render(pos, colors, radii, camera=cam, box_edges=cell_edges,
+                          width=width, height=height, device_output=True)
+
+    img, t_warm = sync_time(
+        lambda: [boxed_frame() for _ in range(WARM_FRAMES + 1)][-1])
+    img, t_warm = sync_time(lambda: [boxed_frame() for _ in range(WARM_FRAMES)][-1])
+    box_launches = megakernel.launches
+    t_warm /= WARM_FRAMES
+    (_, frame_bins, chunk_data, lights, params), other = ren._accel, ren._other
+    nl = lights.lparams.shape[0]
+    if other is None or tuple(other.occ.shape) != (nl, 36, 16) or nl != 1 + K:
+        fail(f"config 3 + cell: occluder tables "
+             f"{None if other is None else tuple(other.occ.shape)}")
+    if box_launches < 2 + 2 * WARM_FRAMES:
+        fail(f"config 3 + cell launched the kernel {box_launches} times")
+    if float(img.float().std()) <= 1 or float(rgba[..., :3].std()) <= 1:
+        fail("config 3 + cell: the image is flat")
+    print(f"[6] {card}: config 3 + its cell through render_system: first "
+          f"frame {t_first * 1e3:.1f} ms; warm {t_warm * 1e3:.3f} ms/frame "
+          f"against phase 4's {config3_warm_ms:.3f} ms/frame in this run "
+          f"({t_warm * 1e3 / config3_warm_ms - 1:+.1%}); {nl} lights with "
+          f"{other.occ.shape[1]} occluders each, {int(other.ocnt.max())} "
+          f"cyl/rings in the widest tile, kernel launches {box_launches}")
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, other=other)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    box_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    # the split: closest hit with the cyl/ring pass, + the cell walks, + the
+    # occluder tables; the light grids beside phase 4's
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    walk_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        *args, **dict(kw, other=other._replace(occ=None))), 5)
+    print(f"  kernel split: closest hit + cyl/ring pass + shading {hit_ms:.3f} "
+          f"ms, cell walks +{walk_ms - hit_ms:.3f} ms, occluder tables "
+          f"+{box_kernel_ms - walk_ms:.3f} ms")
+    print(f"  light grids: {light_grid(lights)}; phase 4: {grid_note}")
+    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
+    out_k = megakernel.mega_render_cuda(*args, tiles=band, **kw)
+    out_p = megakernel.mega_render_plain(*args, tiles=band, **kw)
+    errs.append(compare(out_k, out_p, "[6] config 3 + cell, band"))
+    box_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
+    box_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    print(f"  kernel (full frame) {box_kernel_ms:.3f} ms; band of "
+          f"{band[1] - band[0]} tiles: kernel {box_band_ms:.3f} ms, plain "
+          f"{box_plain_ms:.3f} ms")
+    del ren, args, chunk_data, lights, frame_bins, other, out_k, out_p
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",
         "route": "cuda",
         "source": "mdapy_tpu_torch/csrc/mega_render.cu",
         "replaces": "mdapy_tpu/render/megakernel.py:156",
-        "launches": launches + ao_launches,
+        "launches": launches + ao_launches + box_launches + c2_launches,
         "max_abs_err": max(errs),
         "ms": band_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
         "ao_ms": ao_band_ms,
         "ao_plain_ms": ao_plain_ms,
+        "config3_cell_ms": box_band_ms,
+        "config3_cell_plain_ms": box_plain_ms,
+        "config2_ms": c2_band_ms,
+        "config2_plain_ms": c2_plain_ms,
+        "config2_bound_ms": c2_bound_ms,
+        "config2_bound_by": c2_bound_by,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

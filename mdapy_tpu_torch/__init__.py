@@ -2,9 +2,11 @@
 
 The port goes slice by slice beside the JAX package, which stays the
 reference it is tested against.  The slice ported so far is the renderer's
-main path: opaque spheres, AA and one shadowed directional light, with the
-frame rendered by a hand CUDA kernel for the H100 (``csrc/mega_render.cu``).
-This package imports torch and never jax.
+main path (``TachyonRender.render`` and ``render_system``): opaque spheres,
+bond and box-edge cylinders, AA, one shadowed directional light and fast
+ambient occlusion, with the frame rendered by a hand CUDA kernel for the
+H100 (``csrc/mega_render.cu``).  This package imports torch and never jax,
+nor anything of the JAX package.
 
 Imports are lazy, in the style of ``mdapy_tpu/__init__.py``.
 """

@@ -1,12 +1,13 @@
 // Hand CUDA kernel for the render pass of one frame: raygen with AA jitter,
-// front-to-back sphere closest hit, Lambert shading, the primary light's
-// shadow sweep, the ambient-occlusion sky lights and the AA mean, for opaque
-// spheres.
+// front-to-back sphere closest hit, the bond / box-edge cylinders and their
+// ring caps, Lambert shading, the primary light's shadow sweep, the
+// ambient-occlusion sky lights and the AA mean, for opaque scenes.
 //
-// Replaces the sphere slice of the Pallas TPU kernel
+// Replaces the opaque one-shot slice of the Pallas TPU kernel
 // mdapy_tpu/render/megakernel.py:_mega_kernel (launched at :2051 by
-// render_image_mega).  It computes what that kernel computes for the slice;
-// it is not a block-by-block translation:
+// render_image_mega).  Not covered: transparency peeling and the banded
+// variant.  It computes what that kernel computes for the slice; it is not a
+// block-by-block translation:
 //   * one thread block per 16x16 screen tile, one thread per pixel, the AA
 //     samples looped inside the thread in groups of up to SG (each group
 //     shares one walk over the tile's candidate chunks);
@@ -26,15 +27,35 @@
 //     light's cell records and keeps the result as one bit per light.  Every
 //     sample then adds lit * n.L * lightcol * (1 - bit) for each light in
 //     light order, with its own normal.  The light rows (L x 16 floats) sit
-//     in shared memory.  Without AO the kernel is the one-light kernel.
+//     in shared memory.  Without AO the kernel is the one-light kernel;
+//   * with cylinders and rings (the OTHER template flag) the block stages the
+//     tile's cyl/ring records (at most 512, one per thread per batch) in
+//     shared memory after the sphere walk, and each thread tests them for
+//     each of its samples; a record replaces the best hit only when its t is
+//     strictly smaller, so a sphere keeps a tie and the lowest slot wins
+//     among cyl/rings.  A tile is live when it holds spheres or cyl/rings.
+//     The normal is picked by the winner's type.  For each light, a lit ray
+//     whose cell walk came back clear is also tested against the light's
+//     occluder table (every live cylinder and ring, with light-space cull
+//     data): the block reduces its lit rays' (u, v) rectangle and least tau,
+//     compacts the entries that pass the conservative cull of the JAX kernel
+//     (megakernel.py:1156-1194) into shared memory 256 at a time, and tests
+//     them.  The primary light does this per sample group, each sky light on
+//     sample 0; every cell walk of a group comes before the first occluder
+//     test, so no barrier falls between walks of uneven length.  Without
+//     OTHER the code is the sphere-only kernel.
 //
 // What bounds it on the card: per-ray sphere tests (about 10 fp32 operations
 // each, ~128 per processed chunk) and the shadow walks, whose lengths vary
 // from ray to ray and so diverge within a warp; with AO, sample 0 runs L-1
 // more walks one after another.  Candidate records are read once per chunk
-// per block, so device memory traffic is small next to the arithmetic.
-// Later work: warp-cooperative shadow windows, sorting rays by light cell,
-// persistent blocks.
+// per block, so device memory traffic is small next to the arithmetic.  With
+// cylinders the dense per-tile cyl/ring tests (about 40 operations each) and
+// the culled occluder tests add to it.  The limits the front end keeps (at
+// most 512 cyl/ring candidates in a tile and 8,192 live cylinders + rings
+// with shadows or AO) are those of the JAX package; past them it takes
+// another tracer.  Later work: warp-cooperative shadow windows, sorting rays
+// by light cell, persistent blocks, depth-sorted cyl/ring chunks.
 //
 // Built by mdapy_tpu_torch/render/_build.py with nvcc for sm_90a into a
 // shared library with a plain C interface (ctypes).  It is compiled with
@@ -51,6 +72,8 @@ constexpr int P = TILE * TILE;   // pixels per tile = threads per block
 constexpr int CH = 128;          // candidates per chunk
 constexpr int SG = 8;            // most AA samples traced per chunk walk
 constexpr int MAX_LIGHTS = 64;   // lights a launch takes (one mask bit each)
+constexpr int OCB = P;           // cyl/ring records staged per batch
+constexpr int OTHER_BIT = 1 << 30;  // winner index flag: a cyl/ring record
 constexpr float BIG = 1e18f;
 constexpr float BIG_DEPTH = 1e17f;
 constexpr float MINCONTRIB = 1.0f / 512.0f;
@@ -135,7 +158,175 @@ __device__ __forceinline__ bool light_blocked(const float* lp, float hx,
   return occluded(lrec, loffs, lcnt, lkmax, cell, u, v, tau + eps);
 }
 
-template <bool PERSP, bool SHADOWS, bool AO>
+// t of a camera ray against one cylinder body (typ 1) or ring disc (typ 2),
+// BIG on a miss: the JAX kernel's dense pass (megakernel.py:513-549), with
+// oc = ray origin - record position and the ray-independent op / cq terms
+// (op = oc minus its axis part, cq = |op|^2 - rad^2) precomputed.  The body
+// uses the stable perpendicular-vector form and s in [0, alen].
+__device__ __forceinline__ float cylring_t(float ocx, float ocy, float ocz,
+                                           float oca, float opx, float opy,
+                                           float opz, float cq, float4 ax,
+                                           float rad, float alen, float dx,
+                                           float dy, float dz, float eps) {
+  const float dda = ax.x * dx + ax.y * dy + ax.z * dz;
+  if (ax.w == 1.0f) {
+    const float dpx = dx - dda * ax.x, dpy = dy - dda * ax.y,
+                dpz = dz - dda * ax.z;
+    const float a2 = dpx * dpx + dpy * dpy + dpz * dpz;
+    const float bq = opx * dpx + opy * dpy + opz * dpz;
+    const float disc = bq * bq - a2 * cq;
+    if (!(rad > 0.0f && disc >= 0.0f && a2 > 1e-12f)) return BIG;
+    const float inv_a2 = 1.0f / a2;
+    const float sq = sqrtf(disc);
+    const float t1 = (-bq - sq) * inv_a2;
+    const float t2 = (-bq + sq) * inv_a2;
+    const float s1 = oca + t1 * dda;
+    const float s2 = oca + t2 * dda;
+    if (t1 > eps && s1 >= 0.0f && s1 <= alen) return t1;
+    if (t2 > eps && s2 >= 0.0f && s2 <= alen) return t2;
+    return BIG;
+  }
+  if (ax.w == 2.0f && rad > 0.0f && fabsf(dda) > 1e-12f) {
+    const float tr0 = -oca / dda;
+    const float rx = ocx + tr0 * dx, ry = ocy + tr0 * dy, rz = ocz + tr0 * dz;
+    const float rho2 = rx * rx + ry * ry + rz * rz;
+    if (tr0 > eps && rho2 <= rad * rad) return tr0;
+  }
+  return BIG;
+}
+
+// Block-wide min of v[0..N); every thread gets the results.
+template <int N>
+__device__ __forceinline__ void block_min(float (&v)[N], float* red) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    for (int o = 16; o > 0; o >>= 1)
+      v[i] = fminf(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+  __syncthreads();  // red may still be read by the previous call
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * (P / 32) + (threadIdx.x >> 5)] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float r = red[i * (P / 32)];
+#pragma unroll
+    for (int w = 1; w < P / 32; ++w) r = fminf(r, red[i * (P / 32) + w]);
+    v[i] = r;
+  }
+}
+
+// Occluder-table test of the hit points (hx, hy, hz)[k] toward the light of
+// row lp (dir, e1, e2, org), the JAX kernel's dense cyl/ring occluders
+// (megakernel.py:1153-1295).  The block first reduces the (u, v) rectangle
+// and least tau of the samples in rectm (the lit ones) over all its threads;
+// the table's entries whose light-space segment passes within radius +
+// half-diagonal + eps of the rectangle's centre and whose far key exceeds
+// that tau + eps are compacted into shared memory, OCB at a time, with their
+// ray-independent terms, and each sample in testm is tested against them.
+// The result (bit k: sample k blocked) is an OR, so the order in which the
+// entries land in shared memory does not matter.  Every thread of the block
+// must call it.
+__device__ __forceinline__ uint32_t occ_blocked(
+    const float* lp, const float4* __restrict__ occ, int nocc, float eps,
+    uint32_t rectm, uint32_t testm, const float (&hx)[SG],
+    const float (&hy)[SG], const float (&hz)[SG], float4* stage, float* red,
+    int* scount) {
+  float r[5] = {BIG, BIG, BIG, BIG, BIG};  // umin, -umax, vmin, -vmax, taumin
+#pragma unroll
+  for (int k = 0; k < SG; ++k) {
+    if ((rectm >> k) & 1u) {
+      const float u = hx[k] * lp[3] + hy[k] * lp[4] + hz[k] * lp[5] - lp[9];
+      const float v = hx[k] * lp[6] + hy[k] * lp[7] + hz[k] * lp[8] - lp[10];
+      const float tau = hx[k] * lp[0] + hy[k] * lp[1] + hz[k] * lp[2];
+      r[0] = fminf(r[0], u);
+      r[1] = fminf(r[1], -u);
+      r[2] = fminf(r[2], v);
+      r[3] = fminf(r[3], -v);
+      r[4] = fminf(r[4], tau);
+    }
+  }
+  block_min<5>(r, red);
+  const float umin = r[0], umax = -r[1], vmin = r[2], vmax = -r[3];
+  if (!(umax >= umin)) return 0u;  // no lit sample in the block (uniform)
+  const float ucx = 0.5f * (umin + umax), vcx = 0.5f * (vmin + vmax);
+  const float du = umax - umin, dv = vmax - vmin;
+  const float halfdiag = 0.5f * sqrtf(du * du + dv * dv);
+  const float tgate = r[4] + eps;
+  const float lx = lp[0], ly = lp[1], lz = lp[2];
+  uint32_t hit = 0u;
+  for (int b0 = 0; b0 < nocc; b0 += OCB) {
+    __syncthreads();  // the previous batch's readers are done
+    if (threadIdx.x == 0) *scount = 0;
+    __syncthreads();
+    const int i = b0 + (int)threadIdx.x;
+    if (i < nocc) {
+      const float4 a = occ[4 * (size_t)i];      // p, rad
+      const float4 c = occ[4 * (size_t)i + 1];  // u0, v0, lateral pad, far key
+      const float4 d = occ[4 * (size_t)i + 3];  // alen, u1, v1, alpha
+      const float bx = d.y - c.x, by = d.z - c.y;
+      const float wx = ucx - c.x, wy = vcx - c.y;
+      float ts = (wx * bx + wy * by) / fmaxf(bx * bx + by * by, 1e-12f);
+      ts = fminf(fmaxf(ts, 0.0f), 1.0f);
+      const float dxs = wx - ts * bx, dys = wy - ts * by;
+      const float lim = c.z + halfdiag + eps;
+      if (a.w > 0.0f && dxs * dxs + dys * dys <= lim * lim && c.w > tgate) {
+        const float4 b = occ[4 * (size_t)i + 2];  // axis, typ
+        const float dda = b.x * lx + b.y * ly + b.z * lz;
+        const float dpx = lx - dda * b.x, dpy = ly - dda * b.y,
+                    dpz = lz - dda * b.z;
+        const float a2 = dpx * dpx + dpy * dpy + dpz * dpz;
+        const int s = atomicAdd(scount, 1);
+        stage[4 * s] = a;
+        stage[4 * s + 1] = b;
+        stage[4 * s + 2] = make_float4(dpx, dpy, dpz, a2);
+        stage[4 * s + 3] =
+            make_float4(dda, 1.0f / (a2 > 1e-12f ? a2 : 1.0f), d.x, 0.0f);
+      }
+    }
+    __syncthreads();
+    const int n = *scount;
+    uint32_t todo = testm & ~hit;
+    for (int j = 0; j < n && todo; ++j) {
+      const float4 a = stage[4 * j], b = stage[4 * j + 1];
+      const float4 e = stage[4 * j + 2], f = stage[4 * j + 3];
+#pragma unroll
+      for (int k = 0; k < SG; ++k) {
+        if ((todo >> k) & 1u) {
+          const float ocx = hx[k] - a.x, ocy = hy[k] - a.y, ocz = hz[k] - a.z;
+          const float oca = ocx * b.x + ocy * b.y + ocz * b.z;
+          bool occ_k = false;
+          if (b.w == 1.0f) {
+            const float opx = ocx - oca * b.x, opy = ocy - oca * b.y,
+                        opz = ocz - oca * b.z;
+            const float bq = opx * e.x + opy * e.y + opz * e.z;
+            const float cq = opx * opx + opy * opy + opz * opz - a.w * a.w;
+            const float disc = bq * bq - e.w * cq;
+            if (disc >= 0.0f && e.w > 1e-12f) {
+              const float sq = sqrtf(disc);
+              const float t1 = (-bq - sq) * f.y;
+              const float t2 = (-bq + sq) * f.y;
+              const float s1 = oca + t1 * f.x;
+              const float s2 = oca + t2 * f.x;
+              occ_k = (t1 > eps && s1 >= 0.0f && s1 <= f.z) ||
+                      (t2 > eps && s2 >= 0.0f && s2 <= f.z);
+            }
+          } else if (b.w == 2.0f && fabsf(f.x) > 1e-12f) {
+            const float tr0 = -oca / f.x;
+            const float rx = ocx + tr0 * lx, ry = ocy + tr0 * ly,
+                        rz = ocz + tr0 * lz;
+            occ_k = tr0 > eps && rx * rx + ry * ry + rz * rz <= a.w * a.w;
+          }
+          if (occ_k) todo &= ~(1u << k);
+        }
+      }
+    }
+    hit |= testm & ~todo;
+  }
+  return hit;
+}
+
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER>
 __global__ void __launch_bounds__(P)
 mega_render_kernel(const float* __restrict__ params,
                    const float* __restrict__ lparams, // (nlights, 16)
@@ -145,14 +336,21 @@ mega_render_kernel(const float* __restrict__ params,
                    const int* __restrict__ loffs,     // (nlights, ncells)
                    const int* __restrict__ lcnt,      // (nlights, ncells)
                    const float* __restrict__ lkmax,   // (nlights, ncells)
+                   const float4* __restrict__ orec,   // (M, 4) cyl/ring rows
+                   const int* __restrict__ ooffs,     // (nb,) starts into orec
+                   const int* __restrict__ ocnt,      // (nb,)
+                   const float4* __restrict__ occ,    // (nlights, nocc, 4)
                    float* __restrict__ out,           // (ntiles, 3*P)
                    int tile0, int nchunks, int tiles_x, int S,
-                   uint32_t seed, int grid_n, int nlights, float eps,
-                   float inv_s) {
+                   uint32_t seed, int grid_n, int nlights, int nocc,
+                   float eps, float inv_s) {
   __shared__ float sp[64];
   __shared__ float slp[AO ? MAX_LIGHTS * 16 : 1];
   __shared__ float4 cand[CH];
   __shared__ float red[P / 32];
+  __shared__ float4 ostage[OTHER ? 4 * OCB : 1];
+  __shared__ float ored[OTHER ? 5 * (P / 32) : 1];
+  __shared__ int oscount;
 
   const int tile = tile0 + blockIdx.x;
   const int pix = threadIdx.x;
@@ -164,8 +362,10 @@ mega_render_kernel(const float* __restrict__ params,
   float* tout = out + (size_t)blockIdx.x * 3 * P;
   const float* tzmin = zmin + (size_t)tile * nchunks;
   const float bgr = sp[28], bgg = sp[29], bgb = sp[30];
+  const int ocount = OTHER ? ocnt[tile] : 0;
+  const float4* trec = orec + (OTHER ? 4 * (size_t)ooffs[tile] : 0);
   // a tile with no candidate at all is background
-  if (!(tzmin[0] < BIG_DEPTH)) {
+  if (!(tzmin[0] < BIG_DEPTH) && ocount == 0) {
     tout[pix] = bgr;
     tout[P + pix] = bgg;
     tout[2 * P + pix] = bgb;
@@ -298,6 +498,202 @@ mega_render_kernel(const float* __restrict__ params,
       need = block_max(ln, red);  // its barriers also retire this chunk's reads
     }
 
+    if constexpr (OTHER) {
+      // ---- dense cyl/ring pass over the tile's records, in slot order -------
+      for (int b0 = 0; b0 < ocount; b0 += OCB) {
+        const int n = min(OCB, ocount - b0);
+        __syncthreads();  // the previous batch's readers are done
+        if (pix < n) {
+          const float4* rp = trec + 4 * (size_t)(b0 + pix);
+          const float4 a = rp[0], ax = rp[2];  // (p, rad), (axis, typ)
+          const float alen = rp[3].x;
+          if (PERSP) {
+            const float ocx = ox - a.x, ocy = oy - a.y, ocz = oz - a.z;
+            const float oca = ocx * ax.x + ocy * ax.y + ocz * ax.z;
+            const float opx = ocx - oca * ax.x, opy = ocy - oca * ax.y,
+                        opz = ocz - oca * ax.z;
+            const float cq = opx * opx + opy * opy + opz * opz - a.w * a.w;
+            ostage[4 * pix] = make_float4(ocx, ocy, ocz, oca);
+            ostage[4 * pix + 2] = make_float4(opx, opy, opz, cq);
+          } else {
+            ostage[4 * pix] = a;
+          }
+          ostage[4 * pix + 1] = ax;
+          ostage[4 * pix + 3] = make_float4(a.w, alen, 0.0f, 0.0f);
+        }
+        __syncthreads();
+        for (int j = 0; j < n; ++j) {
+          const float4 q0 = ostage[4 * j], ax = ostage[4 * j + 1];
+          const float4 q3 = ostage[4 * j + 3];
+          float4 q2 = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (PERSP) q2 = ostage[4 * j + 2];
+#pragma unroll
+          for (int k = 0; k < SG; ++k) {
+            if (k < ns) {
+              float t;
+              if (PERSP) {
+                t = cylring_t(q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, q2.z, q2.w,
+                              ax, q3.x, q3.y, rdx[k], rdy[k], rdz[k], eps);
+              } else {
+                const float ocx = rox[k] - q0.x, ocy = roy[k] - q0.y,
+                            ocz = roz[k] - q0.z;
+                const float oca = ocx * ax.x + ocy * ax.y + ocz * ax.z;
+                const float opx = ocx - oca * ax.x, opy = ocy - oca * ax.y,
+                            opz = ocz - oca * ax.z;
+                const float cq = opx * opx + opy * opy + opz * opz - q3.x * q3.x;
+                t = cylring_t(ocx, ocy, ocz, oca, opx, opy, opz, cq, ax, q3.x,
+                              q3.y, rdx[k], rdy[k], rdz[k], eps);
+              }
+              if (t < bt[k]) {
+                bt[k] = t;
+                bidx[k] = OTHER_BIT | (b0 + j);
+              }
+            }
+          }
+        }
+      }
+
+      // ---- surfaces: hit point -> ro*, facing normal -> rd* ----------------
+      uint32_t missm = 0u;
+#pragma unroll
+      for (int k = 0; k < SG; ++k) {
+        if (k < ns) {
+          float cx = 0.f, cy = 0.f, cz = 0.f, rw = 0.f;
+          float4 ax = make_float4(0.f, 0.f, 0.f, 0.f);  // sphere: typ 0
+          if (bidx[k] >= OTHER_BIT) {
+            const float4* rp = trec + 4 * (size_t)(bidx[k] - OTHER_BIT);
+            const float4 a = rp[0];
+            cx = a.x;
+            cy = a.y;
+            cz = a.z;
+            rw = a.w;
+            ax = rp[2];
+          } else if (bidx[k] >= 0) {
+            const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
+            cx = rp[0];
+            cy = rp[CH];
+            cz = rp[2 * CH];
+            rw = rp[3 * CH];
+          }
+          const bool missed = (bt[k] >= BIG_DEPTH) || (rw <= 0.0f);
+          const float tsafe = missed ? 0.0f : bt[k];
+          const float hx = rox[k] + tsafe * rdx[k];
+          const float hy = roy[k] + tsafe * rdy[k];
+          const float hz = roz[k] + tsafe * rdz[k];
+          float nx = hx - cx, ny = hy - cy, nz = hz - cz;
+          if (ax.w == 1.0f) {  // cylinder: radial minus the axis part
+            const float sax = nx * ax.x + ny * ax.y + nz * ax.z;
+            nx = nx - sax * ax.x;
+            ny = ny - sax * ax.y;
+            nz = nz - sax * ax.z;
+          } else if (ax.w == 2.0f) {  // ring: the plane normal
+            nx = ax.x;
+            ny = ax.y;
+            nz = ax.z;
+          }
+          const float inv = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+          nx *= inv;
+          ny *= inv;
+          nz *= inv;
+          const float facing = nx * rdx[k] + ny * rdy[k] + nz * rdz[k];
+          const float flip = facing > 0.0f ? -1.0f : 1.0f;
+          rox[k] = hx;
+          roy[k] = hy;
+          roz[k] = hz;
+          rdx[k] = nx * flip;
+          rdy[k] = ny * flip;
+          rdz[k] = nz * flip;
+          if (missed) missm |= 1u << k;
+        }
+      }
+
+      // ---- cell walks: the primary light per sample, the AO sky lights on ----
+      // sample 0.  No barrier falls between them, so the walks of one thread
+      // overlap the others' whatever their lengths.
+      uint32_t litm = 0u, blkm = 0u;
+#pragma unroll
+      for (int k = 0; k < SG; ++k) {
+        if (k < ns) {
+          const float inten = rdx[k] * lx + rdy[k] * ly + rdz[k] * lz;
+          if (inten > MINCONTRIB && !((missm >> k) & 1u)) {
+            litm |= 1u << k;
+            if (SHADOWS && light_blocked(sp + 15, rox[k], roy[k], roz[k],
+                                         grid_n, 0, eps, lrec, loffs, lcnt,
+                                         lkmax))
+              blkm |= 1u << k;
+          }
+        }
+      }
+      const bool ao0 = AO && SHADOWS && g == 0;
+      const bool miss0 = missm & 1u;
+      if (ao0) {
+        for (int l = 1; l < nlights; ++l) {
+          const float* lp = slp + 16 * l;
+          const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
+          if (il > MINCONTRIB && !miss0 &&
+              light_blocked(lp, rox[0], roy[0], roz[0], grid_n,
+                            l * grid_n * grid_n, eps, lrec, loffs, lcnt, lkmax))
+            aoblocked |= 1ull << l;
+        }
+      }
+
+      // ---- occluder tables, for the points their cell walk left clear -------
+      if (SHADOWS && nocc > 0) {
+        blkm |= occ_blocked(sp + 15, occ, nocc, eps, litm, litm & ~blkm, rox,
+                            roy, roz, ostage, ored, &oscount);
+        if (ao0) {
+          for (int l = 1; l < nlights; ++l) {
+            const float* lp = slp + 16 * l;
+            const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
+            const uint32_t lit0 = (il > MINCONTRIB && !miss0) ? 1u : 0u;
+            const uint32_t clear0 = lit0 & ~(uint32_t)((aoblocked >> l) & 1ull);
+            if (occ_blocked(lp, occ + 4 * (size_t)l * nocc, nocc, eps, lit0,
+                            clear0, rox, roy, roz, ostage, ored, &oscount))
+              aoblocked |= 1ull << l;
+          }
+        }
+      }
+
+      // ---- shading, per sample, lights in order ------------------------------
+#pragma unroll
+      for (int k = 0; k < SG; ++k) {
+        if (k < ns) {
+          float cr = 0.f, cg = 0.f, cb = 0.f;
+          if (bidx[k] >= OTHER_BIT) {
+            const float4 c = trec[4 * (size_t)(bidx[k] - OTHER_BIT) + 1];
+            cr = c.x;
+            cg = c.y;
+            cb = c.z;
+          } else if (bidx[k] >= 0) {
+            const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
+            cr = rp[4 * CH];
+            cg = rp[5 * CH];
+            cb = rp[6 * CH];
+          }
+          const bool missed = (missm >> k) & 1u;
+          const float nx = rdx[k], ny = rdy[k], nz = rdz[k];
+          const float inten = nx * lx + ny * ly + nz * lz;
+          const float lit = ((litm >> k) & 1u) ? 1.0f : 0.0f;
+          const float filt = ((blkm >> k) & 1u) ? 0.0f : 1.0f;
+          float sh = lit * inten * lightcol * filt;
+          if (AO) {
+            for (int l = 1; l < nlights; ++l) {
+              const float* lp = slp + 16 * l;
+              const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
+              const float ll = (il > MINCONTRIB && !missed) ? 1.0f : 0.0f;
+              const float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+              sh = sh + ll * il * lp[12] * fl;
+            }
+          }
+          const float shade = 0.8f * sh + ambient;
+          ar = ar + (missed ? bgr : cr * shade);
+          ag = ag + (missed ? bgg : cg * shade);
+          ab = ab + (missed ? bgb : cb * shade);
+        }
+      }
+      continue;
+    }
+
     // ---- shading + shadow, per sample --------------------------------------
 #pragma unroll
     for (int k = 0; k < SG; ++k) {
@@ -369,22 +765,26 @@ mega_render_kernel(const float* __restrict__ params,
   tout[2 * P + pix] = ab * inv_s;
 }
 
-template <bool PERSP, bool SHADOWS, bool AO>
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER>
 void launch(cudaStream_t st, int ntiles, int tile0, const float* params,
             const float* lparams, const float* chunks, const float* zmin,
             const float* lrec, const int* loffs, const int* lcnt,
-            const float* lkmax, float* out, int nchunks, int tiles_x, int S,
-            uint32_t seed, int grid_n, int nlights, float eps, float inv_s) {
-  mega_render_kernel<PERSP, SHADOWS, AO><<<ntiles, P, 0, st>>>(
+            const float* lkmax, const float* orec, const int* ooffs,
+            const int* ocnt, const float* occ, float* out, int nchunks,
+            int tiles_x, int S, uint32_t seed, int grid_n, int nlights,
+            int nocc, float eps, float inv_s) {
+  mega_render_kernel<PERSP, SHADOWS, AO, OTHER><<<ntiles, P, 0, st>>>(
       params, lparams, chunks, zmin, reinterpret_cast<const float4*>(lrec),
-      loffs, lcnt, lkmax, out, tile0, nchunks, tiles_x, S, seed, grid_n,
-      nlights, eps, inv_s);
+      loffs, lcnt, lkmax, reinterpret_cast<const float4*>(orec), ooffs, ocnt,
+      reinterpret_cast<const float4*>(occ), out, tile0, nchunks, tiles_x, S,
+      seed, grid_n, nlights, nocc, eps, inv_s);
 }
 
-template <bool PERSP>
-decltype(&launch<true, true, true>) pick(bool shadows, bool ao) {
-  if (shadows) return ao ? &launch<PERSP, true, true> : &launch<PERSP, true, false>;
-  return ao ? &launch<PERSP, false, true> : &launch<PERSP, false, false>;
+template <bool PERSP, bool OTHER>
+decltype(&launch<true, true, true, true>) pick(bool shadows, bool ao) {
+  if (shadows)
+    return ao ? &launch<PERSP, true, true, OTHER> : &launch<PERSP, true, false, OTHER>;
+  return ao ? &launch<PERSP, false, true, OTHER> : &launch<PERSP, false, false, OTHER>;
 }
 
 }  // namespace
@@ -395,22 +795,31 @@ decltype(&launch<true, true, true>) pick(bool shadows, bool ao) {
 // lparams holds nlights rows of 16 floats (row 0 is read from params);
 // lrec must be 16-byte aligned (M, 8) rows [cu, cv, ck, r, key, alpha, 0, 0];
 // loffs, lcnt and lkmax hold nlights x grid_n^2 cells, light after light.
+// With other != 0, orec holds the tiles' cyl/ring records as 16-byte aligned
+// (M, 16) rows [p, rad, rgba, axis, typ, alen, 0, 0, 0], tile t's at rows
+// ooffs[t] .. ooffs[t] + ocnt[t] in slot order, and occ the lights' occluder
+// tables (nlights, nocc, 16), rows [p, rad, u0, v0, pad, key, axis, typ,
+// alen, u1, v1, alpha]; nocc = 0 tests no occluder.
 extern "C" int mega_render_launch(const float* params, const float* lparams,
                                   const float* chunks, const float* zmin,
                                   const float* lrec, const int* loffs,
                                   const int* lcnt, const float* lkmax,
+                                  const float* orec, const int* ooffs,
+                                  const int* ocnt, const float* occ,
                                   float* out, int ntiles, int tile0,
                                   int nchunks, int tiles_x, int S,
                                   unsigned int seed, int grid_n, int nlights,
-                                  float eps, float inv_s, int perspective,
-                                  int shadows, void* stream) {
-  if (nlights < 1 || nlights > MAX_LIGHTS)
+                                  int nocc, float eps, float inv_s,
+                                  int perspective, int shadows, int other,
+                                  void* stream) {
+  if (nlights < 1 || nlights > MAX_LIGHTS || nocc < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ao = nlights > 1;
-  auto go = perspective ? pick<true>(shadows != 0, ao)
-                        : pick<false>(shadows != 0, ao);
+  const bool ao = nlights > 1, sh = shadows != 0;
+  auto go = other ? (perspective ? pick<true, true>(sh, ao) : pick<false, true>(sh, ao))
+                  : (perspective ? pick<true, false>(sh, ao) : pick<false, false>(sh, ao));
   go(st, ntiles, tile0, params, lparams, chunks, zmin, lrec, loffs, lcnt,
-     lkmax, out, nchunks, tiles_x, S, seed, grid_n, nlights, eps, inv_s);
+     lkmax, orec, ooffs, ocnt, occ, out, nchunks, tiles_x, S, seed, grid_n,
+     nlights, nocc, eps, inv_s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,11 +30,11 @@ NVCC_FLAGS = [
 
 _c = ctypes
 _MEGA_ARGTYPES = (
-    [_c.c_void_p] * 9                                  # params, lparams .. out
+    [_c.c_void_p] * 13                                 # params, lparams .. occ, out
     + [_c.c_int] * 5                                   # ntiles, tile0, nchunks, tiles_x, S
-    + [_c.c_uint, _c.c_int, _c.c_int]                  # seed, grid_n, nlights
+    + [_c.c_uint, _c.c_int, _c.c_int, _c.c_int]        # seed, grid_n, nlights, nocc
     + [_c.c_float, _c.c_float]                         # eps, inv_s
-    + [_c.c_int, _c.c_int, _c.c_void_p]                # perspective, shadows, stream
+    + [_c.c_int, _c.c_int, _c.c_int, _c.c_void_p]      # perspective, shadows, other, stream
 )
 
 

@@ -1,37 +1,49 @@
 """Acceleration structures for the render slice — binning, not BVHs.
 
-Port of the sphere path of ``mdapy_tpu/render/accel.py``:
+Port of ``mdapy_tpu/render/accel.py``:
 
   * screen-tile bins (``build_screen_bins`` :417): conservative per-sphere
     screen-space spans -> (tile, sphere) pairs -> per-tile candidate lists,
     depth-sorted front to back and cut into 128-wide chunks, each with its
-    minimum conservative depth (``zmin``) for the kernel's early exit;
+    minimum conservative depth (``zmin``) for the kernel's early exit; the
+    cylinders and rings get per-tile lists from their bounding spheres
+    (``_prim_bounds`` :378), the cylinders' pairs culled to the projected
+    segment's band (``_cyl_screen_seg`` :323, ``_seg_tile_cull`` :49);
   * light-grid bins (``build_light_bins`` :528): a 2D grid perpendicular to
-    the directional light; each cell lists the spheres whose lateral
-    footprint overlaps it, sorted by descending far-depth key c.L + r;
+    the directional light, framed over every kind (:533-539); each cell
+    lists the spheres whose lateral footprint overlaps it, sorted by
+    descending far-depth key c.L + r;
   * light records (``build_light_records`` :613): the CSR rows
     ``[cu, cv, ck, r, key, alpha, 0, 0]`` the shadow sweep reads, with the
-    per-cell maximum key ``lkmax``.
+    per-cell maximum key ``lkmax``;
+  * cylinder and ring records (``_other_records`` :638, ``_gather_other``
+    :667, ``gather_other_records`` :687): 16-float rows per primitive, the
+    tiles' candidates gathered back to back, and one occluder table per
+    light with its light-space cull data.
 
 The (bucket, item) pair expansion is ``repeat_interleave`` over the span
 sizes, so the scatter-offset clamp of the JAX build (``accel.py:86``,
 ROADMAP fault C1) has no counterpart here.  The power-of-two capacity caches
 and the 128-lane padding of the JAX build exist only for XLA's static shapes
-and are dropped; the chunk width stays 128.  So is ``scene_live_counts``
-(accel.py:362): the JAX build needs live counts to size static shapes and to
-skip empty primitive kinds, and the pair expansion here needs neither.
+and are dropped; the chunk width stays 128, and the cyl/ring lists and
+occluder tables are compact, not padded to 128 lanes.  So is
+``scene_live_counts`` (accel.py:362): the JAX build needs live counts to
+size static shapes and to skip empty primitive kinds, and the pair
+expansion here needs neither.  The JAX light build also bins the cylinders
+and rings into the light grid, which no kernel reads; that is left out.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 __all__ = [
     "ScreenBins", "LightBins", "build_screen_bins", "build_light_bins",
-    "build_light_records",
+    "build_light_records", "other_table", "gather_other_records",
+    "occluder_records",
 ]
 
 BIG_DEPTH = 1e17
@@ -44,6 +56,14 @@ class ScreenBins(NamedTuple):
     tiles_x: int
     tiles_y: int
     tile_px: int
+    # cylinders and rings: per-tile ids back to back, cylinders by ascending
+    # id, then rings by ascending id + Nc (the padded cylinder count)
+    oth_ids: Optional[torch.Tensor] = None     # (M,) int64
+    oth_offs: Optional[torch.Tensor] = None    # (nb,) int64 starts
+    oth_count: Optional[torch.Tensor] = None   # (nb,) int64
+    # the JAX renderer's per-tile bound: the widest tile's cylinder count
+    # plus its ring count, each rounded up to 8 (render.py:399-402)
+    k_other: int = 0
 
 
 class LightBins(NamedTuple):
@@ -175,19 +195,80 @@ def _screen_setup(frame, width: int, height: int, dtype, device):
     )
 
 
+def _cyl_screen_seg(base, axis, radii, g, perspective: bool):
+    """Projected 2D segment (pixel coords) and radius pad per cylinder, and
+    whether its cull applies (accel.py:323-359): endpoints behind the camera,
+    or a bounding tube that reaches the camera plane, leave it inactive."""
+    origin, right, up2, view = g["origin"], g["right"], g["up2"], g["view"]
+    left, bottom, psx, psy = g["left"], g["bottom"], g["psx"], g["psy"]
+
+    def proj(rel):
+        xc = rel @ right
+        yc = rel @ up2
+        zc = rel @ view
+        if perspective:
+            zs = torch.clamp(zc, min=1e-6)
+            return (xc / zs - left) / psx, (yc / zs - bottom) / psy, zc
+        return (xc - left) / psx, (yc - bottom) / psy, torch.ones_like(zc)
+
+    x0p, y0p, z0 = proj(base - origin)
+    x1p, y1p, z1 = proj(base + axis - origin)
+    ps = torch.minimum(psx, psy)
+    if perspective:
+        zmin = torch.clamp(torch.minimum(z0, z1), min=1e-6)
+        # finite-distance silhouette half-width times sec^2 of the frame
+        # corner's angle
+        sec2 = 1.0 + left * left + bottom * bottom
+        safe = torch.sqrt(torch.clamp(zmin * zmin - radii * radii, min=1e-12))
+        rpad = radii * sec2 / (safe * ps)
+        active = ((z0 > 1e-6) & (z1 > 1e-6) & (radii > 0)
+                  & (zmin > radii * 1.05))
+    else:
+        rpad = radii / ps
+        active = radii > 0
+    return x0p, y0p, x1p, y1p, rpad, active
+
+
+def _seg_tile_cull(seg, item, tx, ty, tile_px: int):
+    """True where the item's projected segment band misses the tile
+    (accel.py:49-69); inactive items are never culled."""
+    sx0, sy0, sx1, sy1, rpad, active = seg
+    cx = (tx.to(sx0.dtype) + 0.5) * tile_px
+    cy = (ty.to(sx0.dtype) + 0.5) * tile_px
+    ax, ay = sx0[item], sy0[item]
+    bx, by = sx1[item] - ax, sy1[item] - ay
+    wx, wy = cx - ax, cy - ay
+    denom = torch.clamp(bx * bx + by * by, min=1e-12)
+    t = torch.clamp((wx * bx + wy * by) / denom, 0.0, 1.0)
+    dx = wx - t * bx
+    dy = wy - t * by
+    lim = rpad[item] + 0.70711 * tile_px + 1.5
+    return active[item] & (dx * dx + dy * dy > lim * lim)
+
+
+def _round8(x: int) -> int:
+    return max(8, -(-int(x) // 8) * 8)
+
+
 def build_screen_bins(scene, frame, width: int, height: int,
                       tile_px: int = 16) -> ScreenBins:
-    """Per-tile front-to-back candidate chunks and their min depths."""
+    """Per-tile front-to-back sphere chunks and their min depths, and the
+    per-tile cylinder and ring lists."""
     centers, radii = scene.sph_center, scene.sph_radius
     g = _screen_setup(frame, width, height, centers.dtype, centers.device)
     tiles_x = -(-width // tile_px)
     tiles_y = -(-height // tile_px)
     nb = tiles_x * tiles_y
-    tx0, ty0, sw, sh = _screen_spans(
-        centers, radii, g["origin"], g["right"], g["up2"], g["view"],
-        g["left"], g["bottom"], g["psx"], g["psy"],
-        width, height, tile_px, bool(frame["perspective"]),
-    )
+    persp = bool(frame["perspective"])
+
+    def spans(c, r):
+        return _screen_spans(
+            c, r, g["origin"], g["right"], g["up2"], g["view"],
+            g["left"], g["bottom"], g["psx"], g["psy"],
+            width, height, tile_px, persp,
+        )
+
+    tx0, ty0, sw, sh = spans(centers, radii)
     bucket, item = _expand_pairs(tx0, ty0, sw, sh, tiles_x)
     # conservative front depth (zc - r) orders each tile's candidates
     depth = (centers @ g["view"]) - radii - (g["origin"] @ g["view"])
@@ -203,8 +284,31 @@ def build_screen_bins(scene, frame, width: int, height: int,
     cand[bucket_s, local] = item_s
     dpad[bucket_s, local] = d_s
     zmin = dpad[:, ::CH].contiguous()
+
+    # cylinders (bounding sphere about the midpoint, pairs culled to the
+    # projected segment's band), then rings; ids of rings follow Nc
+    cyl_live = scene.cyl_radius > 0
+    cmid = scene.cyl_base + 0.5 * scene.cyl_axis
+    cr = torch.where(cyl_live, 0.5 * torch.linalg.norm(scene.cyl_axis, dim=-1)
+                     + scene.cyl_radius, -1.0)
+    cb, ci = _expand_pairs(*spans(cmid, cr), tiles_x)
+    seg = _cyl_screen_seg(scene.cyl_base, scene.cyl_axis, scene.cyl_radius, g,
+                          persp)
+    keep = ~_seg_tile_cull(seg, ci, cb % tiles_x, cb // tiles_x, tile_px)
+    cb, ci = cb[keep], ci[keep]
+    rb, ri = _expand_pairs(*spans(scene.ring_center, scene.ring_rout), tiles_x)
+    k_other = 0
+    for live, b in ((cyl_live, cb), (scene.ring_rout > 0, rb)):
+        if bool(live.any()):
+            k_other += _round8(int(torch.bincount(b, minlength=nb).max())
+                               if nb else 0)
+    ob = torch.cat([cb, rb])
+    oi = torch.cat([ci, ri + scene.cyl_base.shape[0]])
+    order = torch.argsort(ob, stable=True)
+    ocount = torch.bincount(ob, minlength=nb)
     return ScreenBins(cand.view(nb, nchunks, CH), zmin, tiles_x, tiles_y,
-                      tile_px)
+                      tile_px, oi[order], torch.cumsum(ocount, 0) - ocount,
+                      ocount, k_other)
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +353,20 @@ def _light_spans(centers, radii, e1, e2, umin, vmin, inv_cell, grid: int):
 
 
 def build_light_bins(scene, light_dir, grid: int = 32) -> LightBins:
-    """Light-grid cells -> sphere ids sorted by descending far key c.L + r."""
+    """Light-grid cells -> sphere ids sorted by descending far key c.L + r.
+
+    The grid is framed over every kind's bounding spheres (cylinder
+    midpoints with half-length + radius, rings with their outer radius), as
+    in the JAX build (accel.py:533-539)."""
     centers, radii = scene.sph_center, scene.sph_radius
     np_dtype = torch.empty((), dtype=centers.dtype).numpy().dtype
     L = torch.as_tensor(np.asarray(light_dir, np_dtype), device=centers.device)
-    e1, e2, umin, vmin, extent = _light_frame(centers, radii, L)
+    cmid = scene.cyl_base + 0.5 * scene.cyl_axis
+    clen = torch.linalg.norm(scene.cyl_axis, dim=-1)
+    cr = torch.where(scene.cyl_radius > 0, 0.5 * clen + scene.cyl_radius, -1.0)
+    e1, e2, umin, vmin, extent = _light_frame(
+        torch.cat([centers, cmid, scene.ring_center]),
+        torch.cat([radii, cr, scene.ring_rout]), L)
     inv_cell = grid / extent
     x0, y0, sw, sh = _light_spans(centers, radii, e1, e2, umin, vmin,
                                   inv_cell, grid)
@@ -290,3 +403,67 @@ def build_light_records(lb: LightBins, scene):
     if lrec.shape[0]:
         lkmax = torch.where(lb.count > 0, lrec[first, 4], lkmax)
     return (lrec, lb.offs.to(torch.int32), lb.count.to(torch.int32), lkmax)
+
+
+# ---------------------------------------------------------------------------
+# cylinder and ring records
+# ---------------------------------------------------------------------------
+
+
+def other_table(scene) -> torch.Tensor:
+    """(Nc + Nr, 16) f32 records of every cylinder, then every ring
+    (accel.py:638-664): rows [p(3), rad, rgba(4), unit axis(3), typ, alen,
+    0, 0, 0] — p the cylinder base or ring centre, the axis the cylinder
+    direction or ring normal, typ 1 (cylinder) or 2 (ring), alen the
+    cylinder length (0 for a ring); dead primitives carry radius -1."""
+    cb, ca = scene.cyl_base, scene.cyl_axis
+    alen = torch.linalg.norm(ca, dim=-1)
+    ahat = ca / torch.clamp(alen, min=1e-30)[:, None]
+    crad = torch.where(scene.cyl_radius > 0, scene.cyl_radius, -1.0)
+    nc = cb.shape[0]
+    crec = torch.cat([
+        cb, crad[:, None], scene.cyl_color, ahat,
+        torch.full((nc, 1), 1.0, dtype=cb.dtype, device=cb.device),
+        alen[:, None], torch.zeros((nc, 3), dtype=cb.dtype, device=cb.device),
+    ], dim=1)
+    rc = scene.ring_center
+    rrad = torch.where(scene.ring_rout > 0, scene.ring_rout, -1.0)
+    nr = rc.shape[0]
+    rrec = torch.cat([
+        rc, rrad[:, None], scene.ring_color, scene.ring_normal,
+        torch.full((nr, 1), 2.0, dtype=rc.dtype, device=rc.device),
+        torch.zeros((nr, 4), dtype=rc.dtype, device=rc.device),
+    ], dim=1)
+    return torch.cat([crec, rrec]).to(torch.float32)
+
+
+def gather_other_records(bins: ScreenBins, table: torch.Tensor):
+    """The tiles' cylinder and ring candidates as (orec (M, 16) f32, ooffs
+    (nb,) i32, ocnt (nb,) i32): tile t's records at rows ooffs[t] ..
+    ooffs[t] + ocnt[t], cylinders by ascending id, then rings — the order of
+    the JAX gather's stable compaction (accel.py:667-684), without its
+    128-lane padding."""
+    return (table[bins.oth_ids].contiguous(), bins.oth_offs.to(torch.int32),
+            bins.oth_count.to(torch.int32))
+
+
+def occluder_records(table: torch.Tensor, lb: LightBins) -> torch.Tensor:
+    """One light's occluder table (accel.py:713-742): the live rows of
+    ``table`` in order, with rows 4-7 and 13-14 given over to light-space
+    cull data — 4, 5 the lateral (u, v) of p, 13, 14 of the far end (p +
+    axis * alen; a ring's far end is p), 6 the lateral pad (the radius), 7
+    the far key max(p.L, p1.L) + radius — and row 15 the alpha."""
+    rec = table[table[:, 3] > 0].clone()
+    rec[:, 15] = rec[:, 7]
+    f32 = torch.float32
+    e1, e2, L, org = (t.to(device=rec.device, dtype=f32)
+                      for t in (lb.e1, lb.e2, lb.L, lb.org))
+    p0 = rec[:, 0:3]
+    p1 = p0 + torch.where(rec[:, 11:12] == 1.0, rec[:, 8:11] * rec[:, 12:13], 0.0)
+    rec[:, 4] = p0 @ e1 - org[0]
+    rec[:, 5] = p0 @ e2 - org[1]
+    rec[:, 13] = p1 @ e1 - org[0]
+    rec[:, 14] = p1 @ e2 - org[1]
+    rec[:, 6] = rec[:, 3]
+    rec[:, 7] = torch.maximum(p0 @ L, p1 @ L) + rec[:, 3]
+    return rec

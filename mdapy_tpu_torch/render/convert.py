@@ -14,20 +14,54 @@ import numpy as np
 import torch
 
 from .accel import ScreenBins
+from .megakernel import OtherRecords
 from .scene import Scene
 
 __all__ = [
     "scene_from_numpy", "screen_bins_from_numpy", "light_records_from_numpy",
-    "extra_lights_from_numpy",
+    "extra_lights_from_numpy", "other_records_from_numpy",
 ]
 
 
 def scene_from_numpy(scene, device="cpu", dtype=torch.float32) -> Scene:
-    """JAX ``Scene`` (sphere fields) -> port ``Scene``."""
+    """JAX ``Scene`` -> port ``Scene`` (spheres, cylinders and rings)."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device).to(dtype)
 
-    return Scene(t(scene.sph_center), t(scene.sph_radius), t(scene.sph_color))
+    return Scene(*(t(getattr(scene, f)) for f in (
+        "sph_center", "sph_radius", "sph_color", "cyl_base", "cyl_axis",
+        "cyl_radius", "cyl_color", "ring_center", "ring_normal", "ring_rout",
+        "ring_color")))
+
+
+def other_records_from_numpy(other_data, other_count, occ_recs=None,
+                             n_occ: int = 0, extra_occ=(),
+                             device="cpu") -> OtherRecords:
+    """JAX ``gather_other_records`` output -> port ``OtherRecords``.
+
+    ``other_data`` (nb, 16, KO) holds each tile's first ``other_count[t]``
+    records, the rest padding; the port's records are compact (M, 16) rows,
+    tile after tile.  ``occ_recs`` (16, KG) is the primary light's occluder
+    table, its first ``n_occ`` columns live; ``extra_occ`` the sky lights'
+    tables in light order (a None entry reuses the primary's, as the JAX
+    wrapper does, megakernel.py:1960-1962).  Without ``occ_recs`` no
+    occluder is tested."""
+    data = np.asarray(other_data, np.float32)
+    count = np.asarray(other_count, np.int64)
+    rows = np.concatenate([data[t, :, :c].T for t, c in enumerate(count)]
+                          or [np.zeros((0, 16), np.float32)])
+    offs = np.cumsum(count) - count
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+    occ = None
+    if occ_recs is not None:
+        tables = [occ_recs] + [occ_recs if o is None else o for o in extra_occ]
+        occ = t(np.stack([np.asarray(o, np.float32)[:, :n_occ].T
+                          for o in tables]), torch.float32)
+    return OtherRecords(t(rows, torch.float32), t(offs, torch.int32),
+                        t(count, torch.int32), occ)
 
 
 def screen_bins_from_numpy(sph_chunks, sph_zmin, tiles_x: int, tiles_y: int,
@@ -70,14 +104,11 @@ def extra_lights_from_numpy(extra_lights, device="cpu") -> list:
     ``(lrow, ldata, loffs, lcnt, occ[, lkmax])`` -> the port's
     ``stack_lights`` entries ``(lrow, lrec, loffs, lcnt, lkmax)``.
 
-    The cylinder/ring occluder slot must be None: the port has no cylinders
-    yet (ROADMAP B1d)."""
+    The cylinder/ring occluder tables (the entries' fifth slot) go to
+    ``other_records_from_numpy`` as its ``extra_occ``."""
     out = []
     for entry in extra_lights:
-        lrow, ldata, loffs, lcnt, occ = entry[:5]
-        if occ is not None:
-            raise ValueError("cylinder/ring occluders are not ported yet "
-                             "(ROADMAP B1d)")
+        lrow, ldata, loffs, lcnt = entry[:4]
         ncells = np.asarray(loffs).shape[0]
         lkmax = entry[5] if len(entry) > 5 and entry[5] is not None else (
             np.full(ncells, 1e18, np.float32))

@@ -1,11 +1,11 @@
-"""The fused render pass: raygen, sphere closest hit, shading, shadows, AA mean.
+"""The fused render pass: raygen, closest hit, shading, shadows, AA mean.
 
-Port of the sphere slice of ``mdapy_tpu/render/megakernel.py`` —
+Port of the opaque one-shot slice of ``mdapy_tpu/render/megakernel.py`` —
 ``build_mega_params`` (:81), ``_hash_jitter`` (:110), the Pallas kernel
 ``_mega_kernel`` (:156) and its host wrapper ``render_image_mega`` (:1852) —
-for opaque spheres lit by the primary directional light and, with ambient
-occlusion, by the AO sky lights that share its traversal (ROADMAP B1a, B1b
-and B1c).
+for opaque spheres, bond and box-edge cylinders and their ring caps, lit by
+the primary directional light and, with ambient occlusion, by the AO sky
+lights that share its traversal (ROADMAP B1a-B1d).
 
 Per 16x16 screen tile and per AA sample the pass:
   * generates the ray (perspective or orthographic), jittered by a 32-bit
@@ -13,10 +13,17 @@ Per 16x16 screen tile and per AA sample the pass:
   * walks the tile's depth-sorted 128-wide candidate chunks front to back
     and stops at the first chunk whose ``zmin`` is not below the tile's
     max over rays of min(best_t, tcap);
-  * shades the winner: normal, facing flip, miss, Lambert n.L;
+  * tests the tile's cylinder and ring records (``OtherRecords``) densely;
+    one replaces the best hit only when its t is strictly smaller, so a
+    sphere keeps a tie and the lowest slot wins among them;
+  * shades the winner: normal by type (radial, radial minus the axis part,
+    ring axis), facing flip, miss, Lambert n.L;
   * for a lit point, walks its light-grid cell's records in descending
     far-key order and stops at the first occluder, or once key <= tau + eps
-    (no later record can occlude);
+    (no later record can occlude); a point the walk leaves clear is tested
+    against the light's occluder table (every live cylinder and ring), of
+    which only the entries that pass a conservative light-space cull
+    against the lit points of its tile (per group of SG samples) are tried;
   * adds each light's n.L term in light order; the primary light (light 0)
     is shadowed per sample, an AO sky light (l > 0) only on sample 0's hit
     point, whose visibility every sample then shares (the JAX package's
@@ -29,22 +36,23 @@ records from ``extra_lights`` entries, with the JAX wrapper's meaning.
 
 ``mega_render`` dispatches on the tensors' device: CUDA tensors go to the
 hand kernel (``csrc/mega_render.cu``), CPU tensors to ``mega_render_plain``,
-the plain torch version of the same computation.  Cylinders and rings (B1d),
-transparency peeling (B1e) and the banded variant (B1f) are not ported yet.
+the plain torch version of the same computation.  Transparency peeling
+(B1e) and the banded variant (B1f) are not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 __all__ = [
-    "LightStack", "build_mega_params", "hash_jitter", "light_row",
-    "mega_render", "mega_render_plain", "mega_render_cuda", "render_image_mega",
-    "stack_lights", "launches", "reset_launches",
+    "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
+    "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
+    "plain_work", "render_image_mega", "stack_lights", "launches",
+    "reset_launches",
 ]
 
 BIG = 1e18
@@ -53,6 +61,7 @@ MINCONTRIB = 1.0 / 512.0
 TILE_PX = 16
 P = TILE_PX * TILE_PX      # pixels per tile = threads per kernel block
 CH = 128                   # candidates per chunk
+SG = 8                     # AA samples per kernel sample group
 # element budget of one (tiles, rays, CH) temporary in the plain version
 _PLAIN_ELEMS = 1 << 26
 _SHADOW_STEP = 64          # records per step of the plain shadow walk
@@ -65,6 +74,15 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+# tests done by the plain version, by kind, while plain_work() runs
+_work = None
+
+
+def _count(kind: str, n) -> None:
+    if _work is not None:
+        _work[kind] = _work.get(kind, 0) + int(n)
 
 
 def build_mega_params(frame, lb, aabb_lo, aabb_hi, cfg) -> np.ndarray:
@@ -114,6 +132,24 @@ class LightStack(NamedTuple):
     lkmax: torch.Tensor    # (L, ncells) f32 per-cell max far key
 
 
+class OtherRecords(NamedTuple):
+    """The cylinders and rings of one launch, riding beside its LightStack.
+
+    ``orec`` holds each tile's candidate records back to back (tile t's at
+    rows ``ooffs[t] .. ooffs[t] + ocnt[t]``, in slot order: cylinders by
+    ascending id, then rings), rows [p(3), rad, rgba(4), axis(3), typ (1
+    cylinder, 2 ring), alen, 0, 0, 0] as ``accel.other_table`` packs them.
+    ``occ`` holds one occluder table per light of the stack, every live
+    cylinder and ring with rows 4-7 and 13-14 in that light's space [u0, v0,
+    pad, far key, ..., u1, v1] and row 15 the alpha
+    (``accel.occluder_records``); None tests no occluder."""
+
+    orec: torch.Tensor                    # (M, 16) f32
+    ooffs: torch.Tensor                   # (nb,) i32
+    ocnt: torch.Tensor                    # (nb,) i32
+    occ: Optional[torch.Tensor] = None    # (L, nocc, 16) f32
+
+
 def light_row(light_dir, lb, lightcol: float, rmax: float = 0.0) -> np.ndarray:
     """One light's (16,) f32 row from its direction and light bins (slot 13
     holds the scene's max radius, as the JAX front end stores it)."""
@@ -140,7 +176,8 @@ def stack_lights(params, lrec, loffs, lcnt, lkmax, extra_lights=None, *,
     ``lrec, loffs, lcnt, lkmax`` are the primary light's records from
     ``build_light_records``; ``lrec=None`` gives it an empty CSR (no
     shadows).  Each extra entry is ``(lrow (16,), lrec, loffs, lcnt,
-    lkmax)``; its base offset in the stacked records is folded into its
+    lkmax[, occ])`` (an occluder table rides in ``OtherRecords``, not
+    here); its base offset in the stacked records is folded into its
     ``loffs``.  A ``None`` lkmax never skips a cell (+BIG).  Row 0 comes from
     ``params[15:28]``, as at ``megakernel.py:1936-1939``."""
     ncells = grid_n * grid_n
@@ -154,7 +191,7 @@ def stack_lights(params, lrec, loffs, lcnt, lkmax, extra_lights=None, *,
         loffs = lcnt = torch.zeros(ncells, dtype=i32, device=device)
         lkmax = torch.full((ncells,), -BIG_DEPTH, dtype=f32, device=device)
     lights = [(lrec, loffs, lcnt, lkmax)]
-    for lrow, lrec_k, loffs_k, lcnt_k, lkmax_k in extra_lights or ():
+    for lrow, lrec_k, loffs_k, lcnt_k, lkmax_k in (e[:5] for e in extra_lights or ()):
         rows.append(torch.as_tensor(np.asarray(lrow, np.float32)))
         lights.append((lrec_k, loffs_k, lcnt_k, lkmax_k))
     recs, offs, cnts, kms = [], [], [], []
@@ -272,6 +309,7 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
         act = torch.nonzero(zmin[tiles, c] < needed).flatten()
         if act.numel() == 0:
             break
+        _count("sphere", act.numel() * R * CH)
         rec = chunk_data[tiles[act], c]                 # (A, 8, CH)
         cx, cy, cz, r = (rec[:, i, None, :] for i in range(4))
         dx, dy, dz = (v[act, :, None] for v in d)
@@ -306,6 +344,189 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
     return bt, bidx
 
 
+def _closest_hit_other(other, tiles, o, d, bt, eps: float, perspective: bool):
+    """Dense cyl/ring pass after the sphere walk (``megakernel.py:483-568``).
+
+    Returns the new best t (T, R) and the winner's row of ``other.orec``
+    (-1 where no cylinder or ring won).  A record replaces the best hit only
+    when its t is strictly smaller; among equal t the lowest slot wins."""
+    T, R = bt.shape
+    dev = bt.device
+    widx = torch.full((T, R), -1, dtype=torch.int64, device=dev)
+    cnt = other.ocnt[tiles].to(torch.int64)
+    K = int(cnt.max()) if T else 0
+    _count("cylring", cnt.sum() * R)
+    if K == 0:
+        return bt, widx
+    slots = torch.arange(K, device=dev)
+    valid = slots[None, :] < cnt[:, None]
+    rows = torch.where(valid, other.ooffs[tiles].to(torch.int64)[:, None] + slots,
+                       torch.zeros_like(slots))
+    bt = bt.clone()
+    step = max(1, _PLAIN_ELEMS // (R * K))
+    for a in range(0, T, step):
+        sl = slice(a, min(T, a + step))
+        rec = other.orec[rows[sl]]                        # (t, K, 16)
+        px, py, pz, rad = (rec[:, None, :, i] for i in range(4))
+        rad = torch.where(valid[sl][:, None, :], rad, -1.0)
+        axx, axy, axz, typ, alen = (rec[:, None, :, i] for i in range(8, 13))
+        dx, dy, dz = (v[sl, :, None] for v in d)
+        if perspective:
+            ocx = o[0][0, 0] - px
+            ocy = o[1][0, 0] - py
+            ocz = o[2][0, 0] - pz
+        else:
+            ocx = o[0][sl, :, None] - px
+            ocy = o[1][sl, :, None] - py
+            ocz = o[2][sl, :, None] - pz
+        oca = ocx * axx + ocy * axy + ocz * axz
+        opx = ocx - oca * axx
+        opy = ocy - oca * axy
+        opz = ocz - oca * axz
+        cq = opx * opx + opy * opy + opz * opz - rad * rad
+        dda = axx * dx + axy * dy + axz * dz              # (t, R, K)
+        # cylinder body, stable perpendicular-vector form
+        dpx = dx - dda * axx
+        dpy = dy - dda * axy
+        dpz = dz - dda * axz
+        a2 = dpx * dpx + dpy * dpy + dpz * dpz
+        bq = opx * dpx + opy * dpy + opz * dpz
+        disc = bq * bq - a2 * cq
+        live_c = (typ == 1.0) & (rad > 0.0) & (disc >= 0.0) & (a2 > 1e-12)
+        inv_a2 = 1.0 / torch.where(a2 > 1e-12, a2, 1.0)
+        sq = torch.sqrt(torch.where(live_c, disc, 0.0))
+        t1 = (-bq - sq) * inv_a2
+        t2 = (-bq + sq) * inv_a2
+        s1 = oca + t1 * dda
+        s2 = oca + t2 * dda
+        ok1 = live_c & (t1 > eps) & (s1 >= 0.0) & (s1 <= alen)
+        ok2 = live_c & (t2 > eps) & (s2 >= 0.0) & (s2 <= alen)
+        big = torch.full_like(t1, BIG)
+        tc = torch.where(ok1, t1, torch.where(ok2, t2, big))
+        # ring disc in the plane whose normal is the axis
+        ring = (typ == 2.0) & (rad > 0.0) & (dda.abs() > 1e-12)
+        tr0 = -oca / torch.where(ring, dda, 1.0)
+        rx = ocx + tr0 * dx
+        ry = ocy + tr0 * dy
+        rz = ocz + tr0 * dz
+        rho2 = rx * rx + ry * ry + rz * rz
+        okr = ring & (tr0 > eps) & (rho2 <= rad * rad)
+        t = torch.where(okr, tr0, tc)
+        tmin = t.min(dim=2).values
+        jmin = torch.where(t == tmin[..., None], slots, K).min(dim=2).values
+        bt_a = bt[sl]
+        better = tmin < bt_a
+        bt[sl] = torch.where(better, tmin, bt_a)
+        widx[sl] = torch.where(better, rows[sl].gather(1, jmin), widx[sl])
+    return bt, widx
+
+
+def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
+    """Occluder-table test toward light row ``lp`` (``megakernel.py:1153-1295``):
+    True where a cylinder or ring of ``occ`` (nocc, 16) blocks a hit point
+    of ``h`` (three (T, R) tensors) marked in ``test``.
+
+    For each lane range of ``groups`` and each tile, the (u, v) rectangle
+    and least tau of the ``rect`` lanes decide which entries are tried: the
+    conservative cull of the JAX kernel, computed as the hand kernel
+    computes it for its sample groups."""
+    hx, hy, hz = h
+    T = hx.shape[0]
+    blocked = torch.zeros_like(test)
+    if occ.shape[0] == 0 or T == 0:
+        return blocked
+    lx, ly, lz = lp[0], lp[1], lp[2]
+    u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9]
+    v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10]
+    tau = hx * lp[0] + hy * lp[1] + hz * lp[2]
+    px, py, pz, rad, gu0, gv0, grb, gkey = occ[:, :8].unbind(1)
+    axx, axy, axz, typ, alen, gu1, gv1 = occ[:, 8:15].unbind(1)
+    # ray-independent terms of each entry
+    dda = axx * lx + axy * ly + axz * lz
+    dpx = lx - dda * axx
+    dpy = ly - dda * axy
+    dpz = lz - dda * axz
+    a2 = dpx * dpx + dpy * dpy + dpz * dpz
+    inv_a2 = 1.0 / torch.where(a2 > 1e-12, a2, 1.0)
+    bx = gu1 - gu0
+    by = gv1 - gv0
+    blen = torch.clamp(bx * bx + by * by, min=1e-12)
+    for a, b in groups:
+        r = rect[:, a:b]
+        umin = torch.where(r, u[:, a:b], BIG).amin(1)
+        umax = torch.where(r, u[:, a:b], -BIG).amax(1)
+        vmin = torch.where(r, v[:, a:b], BIG).amin(1)
+        vmax = torch.where(r, v[:, a:b], -BIG).amax(1)
+        tmin = torch.where(r, tau[:, a:b], BIG).amin(1)
+        live = umax >= umin
+        _count("cull", live.sum() * occ.shape[0])
+        ucx = 0.5 * (umin + umax)
+        vcx = 0.5 * (vmin + vmax)
+        du = umax - umin
+        dv = vmax - vmin
+        halfdiag = 0.5 * torch.sqrt(du * du + dv * dv)
+        wx = ucx[:, None] - gu0
+        wy = vcx[:, None] - gv0
+        ts = torch.clamp((wx * bx + wy * by) / blen, 0.0, 1.0)
+        dxs = wx - ts * bx
+        dys = wy - ts * by
+        lim = grb + halfdiag[:, None] + eps
+        keep = (live[:, None] & (rad > 0.0) & (dxs * dxs + dys * dys <= lim * lim)
+                & (gkey > (tmin + eps)[:, None]))
+        tt, oo = torch.nonzero(keep, as_tuple=True)    # by tile, then entry
+        nsv = torch.bincount(tt, minlength=T)
+        svoff = torch.cumsum(nsv, 0) - nsv
+        rt, rl = torch.nonzero(test[:, a:b], as_tuple=True)
+        rl = rl + a
+        npair = nsv[rt]
+        cum = torch.cumsum(npair, 0).cpu()
+        s0 = 0
+        while s0 < rt.shape[0]:
+            # rays [s0, s1) with at most _PLAIN_ELEMS (ray, entry) pairs
+            base = int(cum[s0 - 1]) if s0 else 0
+            s1 = max(s0 + 1, int(torch.searchsorted(cum, base + _PLAIN_ELEMS,
+                                                    right=True)))
+            n = npair[s0:s1]
+            ray = torch.repeat_interleave(torch.arange(s0, s1, device=n.device), n)
+            local = (torch.arange(ray.shape[0], device=n.device)
+                     - (torch.cumsum(n, 0) - n)[ray - s0])
+            i = oo[svoff[rt[ray]] + local]
+            _count("occluder", ray.shape[0])
+            tr_, tl_ = rt[ray], rl[ray]
+            ocx = hx[tr_, tl_] - px[i]
+            ocy = hy[tr_, tl_] - py[i]
+            ocz = hz[tr_, tl_] - pz[i]
+            ax_, ay_, az_ = axx[i], axy[i], axz[i]
+            oca = ocx * ax_ + ocy * ay_ + ocz * az_
+            opx = ocx - oca * ax_
+            opy = ocy - oca * ay_
+            opz = ocz - oca * az_
+            rr = rad[i]
+            bq = opx * dpx[i] + opy * dpy[i] + opz * dpz[i]
+            cq = opx * opx + opy * opy + opz * opz - rr * rr
+            a2i = a2[i]
+            disc = bq * bq - a2i * cq
+            live_c = (typ[i] == 1.0) & (disc >= 0.0) & (a2i > 1e-12)
+            sq = torch.sqrt(torch.where(live_c, disc, 0.0))
+            t1 = (-bq - sq) * inv_a2[i]
+            t2 = (-bq + sq) * inv_a2[i]
+            ddai, al = dda[i], alen[i]
+            s1_ = oca + t1 * ddai
+            s2_ = oca + t2 * ddai
+            occ_c = live_c & (((t1 > eps) & (s1_ >= 0.0) & (s1_ <= al))
+                              | ((t2 > eps) & (s2_ >= 0.0) & (s2_ <= al)))
+            ring = (typ[i] == 2.0) & (ddai.abs() > 1e-12)
+            tr0 = -oca / torch.where(ring, ddai, 1.0)
+            rx = ocx + tr0 * lx
+            ry = ocy + tr0 * ly
+            rz = ocz + tr0 * lz
+            occ_r = ring & (tr0 > eps) & (rx * rx + ry * ry + rz * rz <= rr * rr)
+            hit = ray[occ_c | occ_r]
+            blocked[rt[hit], rl[hit]] = True
+            s0 = s1
+    return blocked
+
+
 def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
     """1.0 where some record of the ray's cell occludes it, else 0.0.
 
@@ -331,6 +552,9 @@ def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
         s2 = sr * sr - (du * du + dv * dv)
         q = tau_eps[active, None] - rec[..., 2]
         occ = (s2 > 0.0) & (sr > 0.0) & ((q < 0.0) | (s2 > q * q)) & ~stop
+        if _work is not None:
+            # records a walk reads: up to its first occluder or its stop
+            _count("record", (~stop & (torch.cumsum(occ, 1) - occ.int() == 0)).sum())
         hit = occ.any(dim=1)
         blocked[active[hit]] = 1.0
         active = active[~hit & ~stop[:, -1]]
@@ -353,27 +577,47 @@ def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps):
                            u, v, tau, cell, eps)
 
 
-def _render_batch(chunk_data, zmin, lights, p, tiles, *,
+def _render_batch(chunk_data, zmin, lights, other, p, tiles, *,
                   S, seed, tiles_x, grid_n, eps, perspective, shadows, inv_s):
     o, d, tcap = _raygen(p, tiles, S, seed, tiles_x, perspective)
     bt, bidx = _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps,
                             perspective)
+    if other is not None:
+        bt, widx = _closest_hit_other(other, tiles, o, d, bt, eps, perspective)
     T, R = bt.shape
     hit = bidx >= 0
     c = bidx.clamp(min=0) // CH
     j = bidx.clamp(min=0) % CH
     rec = chunk_data[tiles[:, None], c, :, j]               # (T, R, 8)
     rec = torch.where(hit[..., None], rec, 0.0)
+    if other is not None:
+        # a cyl/ring winner's record: rows 0-7 as a sphere's, then the axis
+        # and the type (0 for a sphere)
+        owin = (widx >= 0)[..., None]
+        orow = other.orec[widx.clamp(min=0)]                 # (T, R, 16)
+        rec = torch.where(owin, orow[..., :8], rec)
+        axis = torch.where(owin, orow[..., 8:12], 0.0)
     missed = (bt >= BIG_DEPTH) | (rec[..., 3] <= 0.0)
     tsafe = torch.where(missed, 0.0, bt)
     h = [o[i] + tsafe * d[i] for i in range(3)]
     n = [h[i] - rec[..., i] for i in range(3)]
+    if other is not None:
+        # cylinder: radial minus the axis part; ring: the plane normal
+        typ = axis[..., 3]
+        sax = n[0] * axis[..., 0] + n[1] * axis[..., 1] + n[2] * axis[..., 2]
+        n = [torch.where(typ == 1.0, n[i] - sax * axis[..., i], n[i])
+             for i in range(3)]
+        n = [torch.where(typ == 2.0, axis[..., i], n[i]) for i in range(3)]
     inv = torch.rsqrt(torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2],
                                   min=1e-30))
     n = [x * inv for x in n]
     facing = n[0] * d[0] + n[1] * d[1] + n[2] * d[2]
     flip = torch.where(facing > 0.0, -1.0, 1.0)
     n = [x * flip for x in n]
+    occ = other.occ if (other is not None and shadows) else None
+    ngroups = -(-S // SG)
+    groups = [(g * S // ngroups * P, (g + 1) * S // ngroups * P)
+              for g in range(ngroups)]
     # per light, in light order: sh += lit * (n.L) * lightcol * (1 - blocked)
     sh = None
     for l in range(lights.lparams.shape[0] if lights is not None else 1):
@@ -389,6 +633,13 @@ def _render_batch(chunk_data, zmin, lights, p, tiles, *,
             blocked = _light_blocked(lights, lp, l, h, sel, grid_n=grid_n,
                                      eps=eps)
             filt = filt.flatten().index_put((sel,), 1.0 - blocked).view(T, R)
+            if occ is not None:
+                # points the cell walk left clear, against the occluder
+                # table, culled per tile and sample group
+                clear = litb & (filt > 0.0)
+                filt = torch.where(
+                    _occluders_blocked(occ[l], lp, h, litb, clear, groups, eps),
+                    0.0, filt)
         elif shadows:
             # a sky light: sample 0's hit point, shared by every sample
             h0 = [x[:, :P] for x in h]
@@ -397,6 +648,13 @@ def _render_batch(chunk_data, zmin, lights, p, tiles, *,
                                      eps=eps)
             filt0 = torch.ones((T * P,), dtype=torch.float32, device=p.device)
             filt0 = filt0.index_put((sel,), 1.0 - blocked).view(T, P)
+            if occ is not None:
+                lit0 = litb[:, :P]
+                clear = lit0 & (filt0 > 0.0)
+                filt0 = torch.where(
+                    _occluders_blocked(occ[l], lp, h0, lit0, clear, [(0, P)],
+                                       eps),
+                    0.0, filt0)
             filt = filt0.repeat(1, S)
         term = lit * inten * lightcol * filt
         sh = term if sh is None else sh + term
@@ -412,6 +670,8 @@ def _render_batch(chunk_data, zmin, lights, p, tiles, *,
     out = torch.cat(out, dim=1)                              # (T, 3*P)
     # tiles with no candidate at all are background, as the kernel writes them
     dead = ~(zmin[tiles, 0] < BIG_DEPTH)
+    if other is not None:
+        dead = dead & (other.ocnt[tiles] == 0)
     bg = torch.repeat_interleave(p[28:31], P)
     return torch.where(dead[:, None], bg[None, :], out)
 
@@ -433,16 +693,31 @@ def _nlights(lights, shadows: bool) -> int:
     return lights.lparams.shape[0]
 
 
+def _nocc(other, nl: int, shadows: bool) -> int:
+    """Occluders per light of ``other`` (0 when none is tested)."""
+    if other is None:
+        return 0
+    if not isinstance(other, OtherRecords):
+        raise ValueError(f"other must be OtherRecords, got {type(other).__name__}")
+    if other.occ is None or not shadows:
+        return 0
+    if other.occ.dim() != 3 or tuple(other.occ.shape[::2]) != (nl, 16):
+        raise ValueError(f"occ must be ({nl}, nocc, 16), got "
+                         f"{tuple(other.occ.shape)}")
+    return other.occ.shape[1]
+
+
 def mega_render_plain(chunk_data, zmin, lights, params, seed, *, S: int,
                       tiles_x: int, grid_n: int, eps: float, perspective: bool,
-                      shadows: bool, tiles=None) -> torch.Tensor:
+                      shadows: bool, tiles=None, other=None) -> torch.Tensor:
     """Plain torch version of the kernel: (ntiles, 3*256) f32 [R|G|B] rows
     for the tiles in ``tiles`` = (first, end), all tiles by default.
 
     ``lights`` is a ``LightStack`` (None: the primary light alone, without
-    shadows).  Runs on the inputs' device; tiles go through in batches that
-    keep each (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
-    _nlights(lights, shadows)
+    shadows); ``other`` the cylinders and rings (``OtherRecords``) or None.
+    Runs on the inputs' device; tiles go through in batches that keep each
+    (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
+    _nocc(other, _nlights(lights, shadows), shadows)
     nb, nchunks, _, ch = chunk_data.shape
     lo, hi = _tile_range(tiles, nb)
     dev = chunk_data.device
@@ -453,7 +728,7 @@ def mega_render_plain(chunk_data, zmin, lights, params, seed, *, S: int,
     for t0 in range(lo, hi, batch):
         tiles = torch.arange(t0, min(hi, t0 + batch), device=dev)
         out[t0 - lo:t0 - lo + tiles.shape[0]] = _render_batch(
-            chunk_data, zmin, lights, p, tiles,
+            chunk_data, zmin, lights, other, p, tiles,
             S=S, seed=seed, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
             perspective=perspective, shadows=shadows, inv_s=inv_s,
         )
@@ -477,7 +752,7 @@ def _check(t, name, dtype, ndim, device):
 
 def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
                      tiles_x: int, grid_n: int, eps: float, perspective: bool,
-                     shadows: bool, tiles=None) -> torch.Tensor:
+                     shadows: bool, tiles=None, other=None) -> torch.Tensor:
     """Launch the hand kernel on CUDA tensors: (ntiles, 3*256) f32 rows
     for the tiles in ``tiles`` = (first, end), all tiles by default."""
     from ._build import load_mega_render
@@ -527,6 +802,26 @@ def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
                                  f"{tuple(t.shape)}")
         if lrec.shape[0] == 0:
             lrec = torch.zeros((1, 8), dtype=f32, device=dev)
+    nocc = _nocc(other, nl, shadows)
+    if other is None:
+        # the sphere-only kernel reads none of these; valid dummy pointers
+        orec = occ = torch.zeros((1, 16), dtype=f32, device=dev)
+        ooffs = ocnt = torch.zeros(1, dtype=i32, device=dev)
+    else:
+        orec, ooffs, ocnt, occ = other
+        _check(orec, "orec", f32, 2, dev)
+        if orec.shape[1] != 16:
+            raise ValueError(f"orec must be (M, 16), got {tuple(orec.shape)}")
+        for t, name in ((ooffs, "ooffs"), (ocnt, "ocnt")):
+            _check(t, name, i32, 1, dev)
+            if t.shape[0] != nb:
+                raise ValueError(f"{name} must be ({nb},), got {tuple(t.shape)}")
+        if orec.shape[0] == 0:
+            orec = torch.zeros((1, 16), dtype=f32, device=dev)
+        if nocc:
+            _check(occ, "occ", f32, 3, dev)
+        else:
+            occ = torch.zeros((1, 16), dtype=f32, device=dev)
     lo, hi = _tile_range(tiles, nb)
     out = torch.empty((hi - lo, 3 * P), dtype=f32, device=dev)
     if hi == lo:
@@ -538,15 +833,33 @@ def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
             ptr(p.data_ptr()), ptr(lparams.data_ptr()),
             ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
             ptr(lrec.data_ptr()), ptr(loffs.data_ptr()), ptr(lcnt.data_ptr()),
-            ptr(lkmax.data_ptr()), ptr(out.data_ptr()),
+            ptr(lkmax.data_ptr()), ptr(orec.data_ptr()), ptr(ooffs.data_ptr()),
+            ptr(ocnt.data_ptr()), ptr(occ.data_ptr()), ptr(out.data_ptr()),
             hi - lo, lo, nchunks, tiles_x, S, int(seed) & 0xFFFFFFFF, grid_n,
-            nl, eps, float(np.float32(1.0 / S)), int(bool(perspective)),
-            int(bool(shadows)), ptr(torch.cuda.current_stream(dev).cuda_stream),
+            nl, nocc, eps, float(np.float32(1.0 / S)), int(bool(perspective)),
+            int(bool(shadows)), int(other is not None),
+            ptr(torch.cuda.current_stream(dev).cuda_stream),
         )
     if rc != 0:
         raise RuntimeError(f"mega_render kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def plain_work(*args, **kwargs) -> dict:
+    """Run ``mega_render_plain`` and return the tests it did, by kind:
+    "sphere" (ray x candidate in the chunks the early exit left), "cylring"
+    (ray x tile cyl/ring record), "record" (shadow records the cell walks
+    read up to their first occluder or stop), "cull" (occluder-table entries
+    culled per tile and sample group) and "occluder" (ray x entry that
+    passed the cull)."""
+    global _work
+    _work = {}
+    try:
+        mega_render_plain(*args, **kwargs)
+        return _work
+    finally:
+        _work = None
 
 
 def mega_render(chunk_data, *args, **kwargs) -> torch.Tensor:
@@ -561,20 +874,22 @@ def mega_render(chunk_data, *args, **kwargs) -> torch.Tensor:
 def render_image_mega(chunk_data, zmin, lights, params, seed, *, S: int,
                       width: int, height: int, tiles_x: int, tiles_y: int,
                       grid_n: int, eps: float, perspective: bool,
-                      shadows: bool, quantized: bool = False) -> torch.Tensor:
+                      shadows: bool, quantized: bool = False,
+                      other=None) -> torch.Tensor:
     """Full-frame render -> (height, width, 3) f32 RGB, or uint8 (rounded)
     when ``quantized`` (the device serving path).
 
     ``chunk_data`` / ``zmin`` come from ``gather_chunk_data`` and
     ``build_screen_bins``; ``lights`` from ``stack_lights`` (None: no
-    shadows, primary light only)."""
+    shadows, primary light only); ``other`` holds the cylinders and rings
+    (``OtherRecords``, with one occluder table per light), or None."""
     nb = chunk_data.shape[0]
     if nb != tiles_x * tiles_y:
         raise ValueError(f"{nb} tiles given for a {tiles_x}x{tiles_y} grid")
     out = mega_render(
         chunk_data, zmin, lights, params, seed,
         S=S, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
-        perspective=perspective, shadows=shadows,
+        perspective=perspective, shadows=shadows, other=other,
     )
     img = out.view(tiles_y, tiles_x, 3, TILE_PX, TILE_PX)
     img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * TILE_PX,

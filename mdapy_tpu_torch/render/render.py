@@ -1,24 +1,29 @@
 """TachyonRender — user-facing renderer front end on PyTorch.
 
 Port of ``mdapy_tpu/render/render.py`` (``TachyonRender`` :75, ``render``
-:164) restricted to the ported slice: opaque spheres, one directional light
-with shadows, AA, and the fast ambient occlusion of scenes above
-``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
-acceleration builds as torch ops on the card and the frame through the hand
-CUDA kernel; ``backend="cpu"`` runs the same builds on the CPU and the
-kernel's plain torch version, in float32.
+:164, ``render_system`` :774, ``_default_colors`` :54) for the opaque
+one-shot megakernel path: spheres, bond and box-edge cylinders with their
+ring caps, one directional light with shadows, AA, and the fast ambient
+occlusion of scenes above ``AO_EXACT_MAX_SPHERES`` padded spheres.
+``backend="cuda"`` runs the acceleration builds as torch ops on the card and
+the frame through the hand CUDA kernel; ``backend="cpu"`` runs the same
+builds on the CPU and the kernel's plain torch version, in float32.
 
 Fast AO (``render.py:551-637``): 2*K2 directional sky lights, K2 =
 ao_samples // 2 Fibonacci hemisphere directions and their opposites, each
-with its own light-grid CSR records, join the primary light in the same
-launch, so one closest-hit traversal serves them all.  Their structures are
-world-space and keyed by the scene alone, so a camera move reuses them.
+with its own light-grid CSR records and cylinder/ring occluder table, join
+the primary light in the same launch, so one closest-hit traversal serves
+them all.  Their structures are world-space and keyed by the scene alone,
+so a camera move reuses them.
 
 What the slice does not cover raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: AO on scenes of at most
-``AO_EXACT_MAX_SPHERES`` padded spheres (the exact tracer, A6), bond and
-box-edge cylinders (B1d), alpha < 1 (B1e), and candidate records past the
-memory budget (B1f).
+``AO_EXACT_MAX_SPHERES`` padded spheres (the exact tracer, A6); cylinders
+and rings past the JAX package's megakernel limits — more than
+``OTHER_TILE_MAX`` candidates in a tile, or more than ``OTHER_SHADOW_MAX``
+live ones with shadows or AO — which take the exact tracer (A6) with AO and
+``render_image_pallas`` (A7/B2) without; alpha < 1 on atoms, bonds or the
+box (B1e); and candidate records past the memory budget (B1f).
 """
 
 from __future__ import annotations
@@ -29,12 +34,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .accel import build_light_bins, build_light_records, build_screen_bins
+from ..core.elements import ele_radius, ele_rgb, type_rgb
+from .accel import (
+    build_light_bins, build_light_records, build_screen_bins,
+    gather_other_records, occluder_records, other_table,
+)
 from .camera import CameraParams, auto_camera, camera_frame
 from .config import RenderConfig, quantize
 from .gather import gather_chunk_data
+from .geometry import bond_edges as _bond_edges
+from .geometry import box_edges as _box_edges
 from .megakernel import (
-    TILE_PX, build_mega_params, light_row, render_image_mega, stack_lights,
+    TILE_PX, OtherRecords, build_mega_params, light_row, render_image_mega,
+    stack_lights,
 )
 from .scene import build_scene
 
@@ -47,6 +59,11 @@ RECORD_BUDGET_BYTES = 16 << 30
 # padded sphere counts up to this take the exact AO tracer (ROADMAP A6) in
 # the JAX renderer; fast AO applies above it (render.py:329-333)
 AO_EXACT_MAX_SPHERES = 20000
+# the JAX renderer's megakernel limits for cylinders and rings
+# (render.py:424-431): cyl/ring candidates in one tile, and live cylinders +
+# rings when shadows or AO test them as occluders
+OTHER_TILE_MAX = 512
+OTHER_SHADOW_MAX = 8192
 
 
 def _fib_hemisphere(k: int) -> np.ndarray:
@@ -59,11 +76,13 @@ def _fib_hemisphere(k: int) -> np.ndarray:
 
 
 def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
-                    rmax: float, grid: int = LIGHT_GRID) -> list:
+                    rmax: float, grid: int = LIGHT_GRID, table=None) -> list:
     """The fast-AO sky lights as ``stack_lights`` extra entries
-    ``(lrow, lrec, loffs, lcnt, lkmax)``: the K2 = ao_samples // 2 hemisphere
-    directions, then their opposites, each of weight 4 / (2 K2) *
-    ao_brightness (``render.py:569-626``)."""
+    ``(lrow, lrec, loffs, lcnt, lkmax, occ)``: the K2 = ao_samples // 2
+    hemisphere directions, then their opposites, each of weight 4 / (2 K2) *
+    ao_brightness (``render.py:569-626``).  ``occ`` is the light's cylinder
+    and ring occluder table when ``table`` (``accel.other_table``) is given,
+    else None."""
     k2 = max(1, int(ao_samples) // 2)
     hemi = _fib_hemisphere(k2)
     lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
@@ -71,7 +90,8 @@ def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
     for dk in np.concatenate([hemi, -hemi], axis=0):
         lb = build_light_bins(scene, dk, grid=grid)
         lrec = build_light_records(lb, scene)
-        lights.append((light_row(dk, lb, lightcol, rmax), *lrec))
+        occ = occluder_records(table, lb) if table is not None else None
+        lights.append((light_row(dk, lb, lightcol, rmax), *lrec, occ))
     return lights
 
 
@@ -79,6 +99,24 @@ def save_image(path: str, img: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(img).save(path)
+
+
+def _default_colors(system) -> np.ndarray:
+    """Jmol palette by element, type palette fallback (render.py:54-69)."""
+    n = system.N
+    if "element" in system.data.columns:
+        elems = np.asarray(system.data["element"]).astype(str)
+        rgb = np.array(
+            [ele_rgb.get(e, [int(255 * 0.7)] * 3) for e in elems], dtype=np.float32
+        ) / 255.0
+    elif "type" in system.data.columns:
+        t = np.asarray(system.data["type"]) % 9
+        rgb = np.array(
+            [type_rgb.get(int(v), [int(255 * 0.7)] * 3) for v in t], dtype=np.float32
+        ) / 255.0
+    else:
+        rgb = np.full((n, 3), 0.7, dtype=np.float32)
+    return np.c_[rgb, np.ones(n)].astype(np.float32)
 
 
 def _fingerprint(h, a: np.ndarray) -> None:
@@ -90,6 +128,24 @@ def _fingerprint(h, a: np.ndarray) -> None:
     h.update(b[-4096:])
     h.update(np.ascontiguousarray(b[::max(1, b.size // 262144)]))
     h.update(str(a.shape).encode())
+
+
+def _scene_aabb(scene):
+    """World-space AABB over the spheres (padding included, as the JAX
+    front end takes it) and the live cylinders and rings (render.py:504-527)."""
+    lo = (scene.sph_center - scene.sph_radius[:, None]).min(dim=0).values
+    hi = (scene.sph_center + scene.sph_radius[:, None]).max(dim=0).values
+    cmid = scene.cyl_base + 0.5 * scene.cyl_axis
+    cext = (0.5 * torch.linalg.norm(scene.cyl_axis, dim=-1)
+            + torch.clamp(scene.cyl_radius, min=0.0))
+    lv = (scene.cyl_radius > 0)[:, None]
+    lo = torch.minimum(lo, torch.where(lv, cmid - cext[:, None], 1e30).min(0).values)
+    hi = torch.maximum(hi, torch.where(lv, cmid + cext[:, None], -1e30).max(0).values)
+    rv = (scene.ring_rout > 0)[:, None]
+    rr = scene.ring_rout[:, None]
+    lo = torch.minimum(lo, torch.where(rv, scene.ring_center - rr, 1e30).min(0).values)
+    hi = torch.maximum(hi, torch.where(rv, scene.ring_center + rr, -1e30).max(0).values)
+    return lo.cpu().numpy(), hi.cpu().numpy()
 
 
 class TachyonRender:
@@ -143,6 +199,7 @@ class TachyonRender:
         self._scene = None
         self._accel_key = None
         self._accel = None
+        self._other = None
         self._ao_key = None
         self._ao = None
 
@@ -155,56 +212,109 @@ class TachyonRender:
                 f"ao={self._cfg.ao_enabled}, aa={self._cfg.aa_enabled})")
 
     # ------------------------------------------------------------------
-    def _scene_for(self, positions, colors, radii):
+    def _scene_for(self, arrays, geom):
         """Scene tensors, rebuilt only when the inputs change.
 
-        The same array objects as the last call reuse the scene with no
-        hashing at all (the JAX renderer's identity fast path; the cache
-        holds references, so the ids stay valid, and an in-place edit of a
-        cached array is the documented hazard).  Other arrays are keyed by a
-        sampled fingerprint."""
-        refs = (positions, colors, radii)
-        if self._input_refs is not None and all(
-                a is b for a, b in zip(refs, self._input_refs)):
+        ``arrays`` = (positions, colors, radii, bond_edges, bond_colors,
+        box_edges) as the caller passed them (None where absent), ``geom``
+        the other scene parameters.  The same array objects and parameters
+        as the last call reuse the scene with no hashing at all (the JAX
+        renderer's identity fast path; the cache holds references, so the
+        ids stay valid, and an in-place edit of a cached array is the
+        documented hazard).  Other arrays are keyed by a sampled
+        fingerprint."""
+        if self._input_refs is not None and geom == self._input_refs[1] and all(
+                a is b for a, b in zip(arrays, self._input_refs[0])):
             return self._scene_key, self._scene
         h = hashlib.sha1()
-        for a in refs:
-            _fingerprint(h, a)
+        for a in arrays:
+            if a is not None:
+                _fingerprint(h, np.ascontiguousarray(a))
+            else:
+                h.update(b"none")
+        h.update(repr(geom).encode())
         key = h.hexdigest()
         if key != self._scene_key:
-            if bool(np.any(colors[:, 3] < 1.0)):
+            positions, colors, radii, bonds, bond_colors, box = arrays
+            bond_radius, bond_color, box_edge_radius, box_color = geom
+            if bonds is not None and bond_colors is None:
+                bc = tuple(float(v) for v in bond_color)
+                bond_colors = np.tile(np.array(
+                    [bc[0], bc[1], bc[2], bc[3] if len(bc) > 3 else 1.0],
+                    dtype=np.float32), (bonds.shape[0], 1))
+            if (bool(np.any(colors[:, 3] < 1.0))
+                    or (bond_colors is not None
+                        and bool(np.any(np.asarray(bond_colors)[:, 3] < 1.0)))
+                    or (len(box_color) > 3 and box_color[3] < 1.0)):
                 raise NotImplementedError(
-                    "transparent atoms (alpha < 1) are not ported yet "
-                    "(ROADMAP B1e)"
+                    "transparent atoms, bonds or box edges (alpha < 1) are "
+                    "not ported yet (ROADMAP B1e)"
                 )
-            scene = build_scene(positions, colors, radii, device=self._device)
-            lo = (scene.sph_center - scene.sph_radius[:, None]).min(dim=0).values
-            hi = (scene.sph_center + scene.sph_radius[:, None]).max(dim=0).values
-            self._scene = (scene, lo.cpu().numpy(), hi.cpu().numpy())
+            scene = build_scene(
+                positions, colors, radii, bond_edges=bonds,
+                bond_colors=bond_colors, bond_radius=bond_radius,
+                box_edges=box, box_edge_radius=box_edge_radius,
+                box_color=box_color, device=self._device)
+            lo, hi = _scene_aabb(scene)
+            n_other = int((scene.cyl_radius > 0).sum()
+                          + (scene.ring_rout > 0).sum())
+            n_sph = int((scene.sph_radius > 0).sum())
+            table = other_table(scene) if n_other else None
+            self._scene = (scene, lo, hi, table, n_other, n_sph)
             self._scene_key = key
             self._accel_key = self._accel = None
-        self._input_refs = refs
+        self._input_refs = (arrays, geom)
         return self._scene_key, self._scene
 
-    def _ao_for(self, scene_key, scene, radii):
-        """The AO sky lights, rebuilt only when the scene changes."""
+    def _ao_for(self, scene_key, scene, radii, table):
+        """The AO sky lights with their occluder tables, rebuilt only when
+        the scene changes (the tables are world-space, as the JAX renderer's
+        scene-keyed AO cache holds them, render.py:563-626)."""
         if scene_key != self._ao_key:
             cfg = self._cfg
             rmax = float(radii.max()) if len(radii) else 0.0
             self._ao = build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
-                                       rmax, grid=LIGHT_GRID)
+                                       rmax, grid=LIGHT_GRID, table=table)
             self._ao_key = scene_key
         return self._ao
 
-    def _accel_for(self, scene_key, scene, lo, hi, camera, width, height,
-                   radii):
-        """Per-view structures, rebuilt only when the scene or view changes."""
+    def _check_other(self, bins, n_other: int, n_sph: int) -> None:
+        """Raise where the JAX renderer leaves the megakernel for a scene
+        with cylinders or rings (render.py:391-445)."""
+        cfg = self._cfg
+        if not n_other:
+            return
+        why = None
+        if not n_sph:
+            why = "a scene of cylinders and rings without a live sphere"
+        elif bins.k_other > OTHER_TILE_MAX:
+            why = (f"{bins.k_other} cylinder + ring candidates in a tile (at "
+                   f"most {OTHER_TILE_MAX})")
+        elif (cfg.shadows_enabled or cfg.ao_enabled) and n_other > OTHER_SHADOW_MAX:
+            why = (f"{n_other} live cylinders + rings with shadows or AO (at "
+                   f"most {OTHER_SHADOW_MAX})")
+        if why is None:
+            return
+        if cfg.ao_enabled:
+            raise NotImplementedError(
+                f"{why} takes, in the JAX renderer, the exact AO tracer, "
+                "which is not ported yet (ROADMAP A6)")
+        path = ("render_image_tiled, which is not ported yet (ROADMAP A7)"
+                if not n_sph else "render_image_pallas with kernel B2, which "
+                "are not ported yet (ROADMAP A7/B2)")
+        raise NotImplementedError(f"{why} takes, in the JAX renderer, {path}")
+
+    def _accel_for(self, scene_key, scene_entry, camera, width, height, radii):
+        """Per-view structures, rebuilt only when the scene or view changes:
+        ((frame, bins, chunk_data, lights, params), other)."""
         key = (scene_key, repr((camera.__dict__, width, height)))
         if key == self._accel_key:
-            return self._accel
+            return self._accel, self._other
+        scene, lo, hi, table, n_other, n_sph = scene_entry
         cfg = self._cfg
         frame = camera_frame(camera, width, height)
         bins = build_screen_bins(scene, frame, width, height, TILE_PX)
+        self._check_other(bins, n_other, n_sph)
         nb, nchunks, ch = bins.sph_chunks.shape
         rec_bytes = nb * nchunks * ch * 32
         if rec_bytes > RECORD_BUDGET_BYTES:
@@ -217,9 +327,9 @@ class TachyonRender:
         chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
                                        scene.sph_radius, scene.sph_color)
         params = build_mega_params(frame, lb, lo, hi, cfg)
-        extra = (self._ao_for(scene_key, scene, radii) if cfg.ao_enabled
-                 else None)
-        lights = None
+        extra = (self._ao_for(scene_key, scene, radii, table)
+                 if cfg.ao_enabled else None)
+        lights = other = None
         if cfg.shadows_enabled or extra:
             # with AO and no shadows the primary light gets an empty CSR and
             # the sweeps stay on for the sky lights (render.py:627-637)
@@ -227,9 +337,20 @@ class TachyonRender:
                        else (None, None, None, None))
             lights = stack_lights(params, *primary, extra_lights=extra,
                                   grid_n=LIGHT_GRID, device=self._device)
+        if table is not None:
+            occ = None
+            if lights is not None:
+                # the primary light's table is tested whenever the sweeps
+                # run, so with AO and shadows off the cylinders still shadow
+                # the primary light, as in the JAX renderer (render.py:
+                # 502, 627-637, megakernel.py:1995)
+                occ = torch.stack([occluder_records(table, lb)]
+                                  + [e[5] for e in extra or ()])
+            other = OtherRecords(*gather_other_records(bins, table), occ)
         self._accel = (frame, bins, chunk_data, lights, params)
+        self._other = other
         self._accel_key = key
-        return self._accel
+        return self._accel, other
 
     def render(
         self,
@@ -250,7 +371,8 @@ class TachyonRender:
         transparent: bool = False,
         device_output: bool = False,
     ):
-        """Render spheres -> (H, W, 4) uint8 RGBA numpy (truncating quantizer).
+        """Render spheres + optional bond/box cylinders -> (H, W, 4) uint8
+        RGBA numpy (truncating quantizer).
 
         ``device_output=True`` returns the rounded (H, W, 3) uint8 frame as
         a tensor on the render device, with no host round trip — the serving
@@ -264,32 +386,41 @@ class TachyonRender:
             raise ValueError(f"colors must be (N,4), got {colors.shape}")
         if radii.ndim != 1:
             raise ValueError(f"radii must be (N,), got {radii.shape}")
-        if (bond_edges is not None and len(bond_edges)) or (
-                box_edges is not None and len(box_edges)):
-            raise NotImplementedError(
-                "bond and box-edge cylinders are not ported yet (ROADMAP B1d)"
-            )
+        if bond_edges is not None:
+            bond_edges = np.ascontiguousarray(bond_edges, dtype=np.float64)
+            if bond_edges.ndim != 3 or bond_edges.shape[1:] != (2, 3):
+                raise ValueError(f"bond_edges must be (K,2,3), got {bond_edges.shape}")
+            if bond_edges.shape[0] == 0:
+                bond_edges = bond_colors = None
+        if box_edges is not None:
+            box_edges = np.ascontiguousarray(box_edges, dtype=np.float64)
+            if box_edges.shape[0] == 0:
+                box_edges = None
         if camera is None:
             camera = auto_camera(
                 positions, max_radius=float(radii.max()) if len(radii) else 0.0)
 
         cfg = self._cfg
-        scene_key, (scene, lo, hi) = self._scene_for(positions, colors, radii)
+        scene_key, entry = self._scene_for(
+            (positions, colors, radii, bond_edges, bond_colors, box_edges),
+            (float(bond_radius), tuple(bond_color), float(box_edge_radius),
+             tuple(box_color)))
+        scene = entry[0]
         if cfg.ao_enabled and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES:
             raise NotImplementedError(
                 f"ambient occlusion on {scene.sph_center.shape[0]} padded "
                 f"spheres (at most {AO_EXACT_MAX_SPHERES}) takes the exact AO "
                 "tracer, which is not ported yet (ROADMAP A6); pass ao=False"
             )
-        frame, bins, chunk_data, lights, params = self._accel_for(
-            scene_key, scene, lo, hi, camera, int(width), int(height), radii)
+        (frame, bins, chunk_data, lights, params), other = self._accel_for(
+            scene_key, entry, camera, int(width), int(height), radii)
         S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
         img_f = render_image_mega(
             chunk_data, bins.sph_zmin, lights, params, self._seed,
             S=S, width=int(width), height=int(height),
             tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
             eps=cfg.eps, perspective=bool(frame["perspective"]),
-            shadows=lights is not None, quantized=device_output,
+            shadows=lights is not None, quantized=device_output, other=other,
         )
         if device_output:
             return img_f
@@ -305,3 +436,76 @@ class TachyonRender:
             save_image(output_figure, img)
             return None
         return img
+
+    # ------------------------------------------------------------------
+    def render_system(
+        self,
+        system,
+        colors: Optional[np.ndarray] = None,
+        radii: Optional[np.ndarray] = None,
+        camera: Optional[CameraParams] = None,
+        draw_bond: bool = False,
+        bond: Optional[np.ndarray] = None,
+        bond_radius: float = 0.1,
+        bond_color: tuple = (0.8, 0.8, 0.8, 1.0),
+        bond_color_mode: str = "uniform",
+        draw_box: bool = True,
+        box_edge_radius: float = 0.05,
+        box_color: tuple = (1.0, 1.0, 1.0, 1.0),
+        default_radius: float = 1.0,
+        width: int = 800,
+        height: int = 600,
+        output_figure: Optional[str] = None,
+        transparent: bool = False,
+    ) -> Optional[np.ndarray]:
+        """Render a System in one call (``render.py:774-839``).
+
+        Reads ``system.get_positions()``, ``.box`` (``.matrix``, ``.origin``,
+        ``.boundary``), ``.N``, ``.data`` (its ``"element"`` or ``"type"``
+        column, when ``.data.columns`` lists one) and ``.bond``, so a JAX
+        package ``System`` or any object with those works."""
+        pos = system.get_positions()
+        if colors is None:
+            colors = _default_colors(system)
+        colors = np.ascontiguousarray(colors, dtype=np.float32)
+        if radii is not None:
+            radii = np.ascontiguousarray(radii, dtype=np.float32)
+        elif "element" in system.data.columns:
+            radii = np.array(
+                [
+                    ele_radius.get(e, default_radius * 2) / 2
+                    for e in np.asarray(system.data["element"]).astype(str)
+                ],
+                dtype=np.float32,
+            )
+        else:
+            radii = np.full(system.N, default_radius, dtype=np.float32)
+
+        box_e = _box_edges(system.box) if draw_box else None
+        bond_e = None
+        bond_c = None
+        if draw_bond:
+            if bond is None:
+                if getattr(system, "bond", None) is None:
+                    raise ValueError(
+                        "draw_bond=True requires a bond array or system.create_bonds() first."
+                    )
+                bond = system.bond
+            bond_e, bond_c = _bond_edges(
+                pos, system.box, bond, colors, radii, bond_radius, bond_color_mode
+            )
+        return self.render(
+            pos, colors, radii,
+            camera=camera,
+            bond_edges=bond_e,
+            bond_colors=bond_c if bond_color_mode == "atom" else None,
+            bond_radius=bond_radius,
+            bond_color=bond_color,
+            box_edges=box_e,
+            box_edge_radius=box_edge_radius,
+            box_color=box_color,
+            width=width,
+            height=height,
+            output_figure=output_figure,
+            transparent=transparent,
+        )

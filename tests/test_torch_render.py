@@ -170,12 +170,33 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="B1e"):
         ao.render(pos, half, radii, width=32, height=32)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
-    edges = np.zeros((1, 2, 3))
-    edges[0, 1] = 1.0
-    with pytest.raises(NotImplementedError, match="B1d"):
-        ren.render(pos, colors, radii, bond_edges=edges, width=32, height=32)
-    with pytest.raises(NotImplementedError, match="B1d"):
-        ren.render(pos, colors, radii, box_edges=edges, width=32, height=32)
+    edges = np.stack([pos[:4], pos[4:8]], axis=1)       # 4 cylinders, 8 rings
+    kw = dict(width=32, height=32)
+    # past the JAX package's cyl/ring bounds: render_image_pallas (A7/B2)
+    # when opaque, the exact tracer (A6) with AO
+    monkeypatch.setattr(trender, "OTHER_TILE_MAX", 8)
+    with pytest.raises(NotImplementedError, match="A7/B2"):
+        ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    with pytest.raises(NotImplementedError, match="A6"):
+        ao.render(pos, colors, radii, box_edges=edges, **kw)
+    monkeypatch.setattr(trender, "OTHER_TILE_MAX", 512)
+    monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 11)
+    with pytest.raises(NotImplementedError, match="A7/B2"):
+        ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    with pytest.raises(NotImplementedError, match="A6"):
+        ao.render(pos, colors, radii, bond_edges=edges, **kw)
+    # the global bound holds only where shadows or AO test occluders
+    flat = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False, shadows=False)
+    assert flat.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
+    monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 12)
+    assert ren.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
+    # a transparent box or bond is B1e, like a transparent atom
+    with pytest.raises(NotImplementedError, match="B1e"):
+        ren.render(pos, colors, radii, box_edges=edges,
+                   box_color=(1.0, 1.0, 1.0, 0.5), **kw)
+    with pytest.raises(NotImplementedError, match="B1e"):
+        ren.render(pos, colors, radii, bond_edges=edges,
+                   bond_color=(0.8, 0.8, 0.8, 0.5), **kw)
     with pytest.raises(NotImplementedError, match="B1e"):
         ren.render(pos, half, radii, width=32, height=32)
     monkeypatch.setattr(trender, "RECORD_BUDGET_BYTES", 1024)
@@ -211,6 +232,27 @@ def test_port_imports_no_jax():
         "img = m.TachyonRender(backend='cpu', ao_samples=4).render("
         "pos, col, rad, width=48, height=32)\n"
         "assert img.shape == (32, 48, 4) and img.std() > 1\n"
+        "class Cell:\n"
+        "    matrix = np.eye(3) * 2 * a\n"
+        "    origin = np.zeros(3)\n"
+        "    boundary = np.array([1, 1, 1])\n"
+        "class Frame:\n"
+        "    columns = ['element']\n"
+        "    def __getitem__(self, k):\n"
+        "        return np.array(['Cu'] * len(pos))\n"
+        "class Stand:\n"
+        "    N, box, data = len(pos), Cell(), Frame()\n"
+        "    def get_positions(self):\n"
+        "        return pos\n"
+        "d = pos[None] - pos[:, None]\n"
+        "d -= np.round(d / (2 * a)) * 2 * a\n"
+        "i, j = np.nonzero(np.triu(np.linalg.norm(d, axis=-1) < 2.6, k=1))\n"
+        "Stand.bond = np.c_[i, j]\n"
+        "r = m.TachyonRender(backend='cpu', ao=False)\n"
+        "img = r.render_system(Stand(), draw_bond=True, radii=np.full(32, .6), "
+        "width=128, height=96)\n"
+        "assert img.shape == (96, 128, 4) and img.std() > 1\n"
+        "assert len(i) == 192 and r._other.orec.shape[0] > 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
