@@ -3,12 +3,13 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, ~80 s on an H100
 
 Phases (any failure exits non-zero before the last line is printed):
 
-1. Build the hand kernel ``mdapy_tpu_torch/csrc/mega_render.cu`` from the
-   sources with nvcc and print ptxas' register and shared-memory lines.
+1. Build the hand kernels ``mdapy_tpu_torch/csrc/mega_render.cu`` and
+   ``tile_kernels.cu`` from the sources, one nvcc each, started together,
+   and print ptxas' register and shared-memory lines.
 2. Kernel against its plain torch version, on the same CUDA tensors, on a
    2,048-atom FCC scene at 320x240: (a) perspective, S = 3, shadows;
    (b) orthographic ("top"), S = 1, shadows; (c) perspective, S = 1, no
@@ -21,7 +22,19 @@ Phases (any failure exits non-zero before the last line is printed):
    4 (5 lights, five occluder tables); (h) a box three times the size of
    the atoms, so that some tiles hold only cylinders.  At most 4 pixels may
    differ by more than 1e-3 in a channel, and the mean difference stays
-   below 1e-4.
+   below 1e-4.  The tiled tracer's kernels, on the 2,048-atom scene through
+   ``render_image_pallas(light_records=...)``: (i) perspective, S = 3, lit
+   from beside the camera; (j) orthographic, S = 1, the preset's light: the
+   chunked closest hit and the shadow filter against their plain versions
+   on the arguments the path gave them (max |diff| of t and of the record
+   at most 1e-4, at most 1e-5 of the rays' filters differing; 0 expected),
+   and the frame against the same frame with the plain versions in the
+   kernels' place.  (k) the 54-atom bond scene pushed past the megakernel's
+   limit through ``TachyonRender`` (``render_image_pallas``, light cells of
+   three kinds), against the plain route and against ``backend="cpu"``;
+   (l) its bonds and cell without atoms (``render_image_tiled``) against
+   ``backend="cpu"`` (at most 0.1 % of the pixels off by more than one
+   level between the card's and the CPU's torch arithmetic).
 3. The headline frame at full size, one light: the 1,000,188-atom FCC block
    (a = 3.615, r = 1.28), the "perspective" preset camera, 1920x1080, AA 12
    (13 samples) with primary-light shadows, through
@@ -56,8 +69,25 @@ Phases (any failure exits non-zero before the last line is printed):
    the kernel split, the light grids beside phase 4's, and the kernel
    against its plain version over a band.
 
-Phase 5 runs before phase 4, and phase 6 after it, on its polycrystal.  The
-headline frame and config 2 also print the bound of the whole frame: the
+7. The heavy-bond frame: BCC Fe in 7x7x7 periodic cells (686 atoms) with
+   its bonds and cell, over the megakernel's 8,192 cylinders + rings, so
+   ``render_system`` takes ``render_image_pallas`` in bands: 1920x1080,
+   AA 12, shadows; first and 5 warm frames, Grays/s, the layers (raygen,
+   chunked closest hit, cylinder/ring merge, shadow pass, shading and
+   mean, host), peak memory, beside phase 5's 6x6x6 warm frame.
+8. The tiled tracer's kernels at full width: the headline scene through
+   ``render_image_pallas_banded(light_records=...)``: the frame beside
+   phase 3's, each kernel's time and counted launches in one frame, and on
+   one band each kernel against its plain version, both timed, with the
+   bound of what the band's data needs (``hit_bound``, ``filt_bound``).  The
+   preset's light shines along the view and lights under 1 % of the rays,
+   so the shadow filter is also held, timed and bounded on the same band
+   lit from beside the camera.  With AA off the megakernel and the tiled tracer draw the same
+   picture by different arithmetic: at most 4 pixels in 7,680 (the CPU
+   tests' bound) may differ by more than one level.
+
+Phase 8 follows phase 3 on its scene, then 5, 7, 4 and 6.  The headline
+frame and configs 2 and 3 also print the bound of the whole frame: the
 tests the plain version counts there (those the early exits leave) at the
 H100's fp32 peak, against the bytes they must move at its HBM rate.
 
@@ -65,7 +95,9 @@ The last three lines are the kernel table (JSON), the card's name and power
 limit as nvidia-smi reports them, and a JSON status line.
 """
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -77,6 +109,9 @@ TOL_PIXELS = 4        # pixels allowed above TOL_PIXEL_DIFF in any channel
 TOL_PIXEL_DIFF = 1e-3
 TOL_MEAN = 1e-4
 WARM_FRAMES = 5
+TOL_HIT = 1e-4        # max |diff| of the closest hit's t and record (0 expected)
+TOL_FILT = 1e-5       # share of rays whose shadow filter may differ (0 expected)
+TOL_LEVELS = 1e-3     # share of uint8 pixels off by > 1 level, card against CPU
 
 
 def fail(msg: str) -> None:
@@ -249,6 +284,114 @@ def frame_bound(what, work, kernel_ms, nb, S, other=None, lights=None):
           f"{b_ms / kernel_ms:.2%})")
 
 
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Put ``fns`` in the place of ``module``'s functions of those names."""
+    old = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+class Recorder:
+    """A function that keeps each call's arguments and CUDA events."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.events = fn, [], []
+
+    def __call__(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.calls.append((args, kwargs))
+        self.events.append((start, end))
+        return out
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class Stopwatch:
+    """A function whose calls are timed on the host, synchronized."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, 0.0
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+# fp32 operations per ray x sphere test of the chunked closest hit, which
+# subtracts the centre per ray (the megakernel's perspective test does not)
+OPS_HIT = 16
+
+
+def hit_bound(tests: int, args, best_t, rec):
+    """Bound of one chunked-closest-hit call: its sphere tests at the fp32
+    peak, against the bytes it must move: the rays (28 B in, 36 B out each,
+    a miss writing its zeros), rows 0-3 of the chunks reached (2,048 B each,
+    once per tile) and rows 4-7 (16 B) of each distinct winning record; a
+    ray that misses reads no record.  Returns (ms, what bounds it, hits,
+    distinct winners)."""
+    o = args[0]
+    nb, R = o.shape[:2]
+    hit = torch.nonzero(best_t.reshape(-1) < 1e17).flatten()
+    tile = (hit // R).to(torch.int32)
+    winners = torch.unique(torch.cat(
+        [tile[:, None], rec.reshape(-1, 8)[hit, :3].contiguous().view(torch.int32)],
+        dim=1), dim=0).shape[0]
+    nbytes = nb * R * (28 + 36) + 2048 * tests / (R * 128) + 16 * winners
+    t_ops, t_bytes = tests * OPS_HIT / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            int(hit.numel()), winners)
+
+
+def filt_bound(megakernel, args, kwargs):
+    """Bound of one shadow-filter call from what this call's data needs.  A
+    ray with lit = 0 reads its flag and writes its filter (8 B); a lit ray
+    also reads (u, v, tau) and its cell (20 B), its cell's offset and count
+    (8 B a distinct cell), and walks its cell's records to its first
+    occluder or its stop.  The rays of a cell walk one list from its head,
+    so the distinct records read are, per cell, its longest walk (32 B
+    each); the operations are 8 per record of every walk.  Returns (ms,
+    what bounds it, the counts)."""
+    uvt, cellxy, lit, lrec, offs, cnt = args[:6]
+    grid_n, eps = kwargs["grid_n"], kwargs["eps"]
+    sel = torch.nonzero(lit.reshape(-1) > 0).flatten()
+    u, v, tau = uvt.reshape(-1, 3)[sel].unbind(1)
+    gx, gy = cellxy.reshape(-1, 2)[sel].clamp(0, grid_n - 1).unbind(1)
+    cell = gy.to(torch.int64) * grid_n + gx
+    walked = torch.zeros_like(cell)
+    batch = 1 << 17
+    for s0 in range(0, sel.shape[0], batch):
+        s = slice(s0, s0 + batch)
+        megakernel._shadow_blocked(lrec, offs, cnt, None, u[s], v[s], tau[s],
+                                   cell[s], eps, walked=walked[s])
+    longest = torch.zeros(grid_n * grid_n, dtype=torch.int64, device=cell.device)
+    longest.scatter_reduce_(0, cell, walked, "amax")
+    counts = {"rays": lit.numel(), "lit": int(sel.numel()),
+              "cells": int((torch.bincount(cell, minlength=1) > 0).sum()),
+              "record": int(walked.sum()), "distinct records": int(longest.sum())}
+    nbytes = (8 * counts["rays"] + 20 * counts["lit"] + 8 * counts["cells"]
+              + 32 * counts["distinct records"])
+    t_ops = counts["record"] * OPS["record"] / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            counts)
+
+
 def sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -286,14 +429,74 @@ def compare(out_kernel, out_plain, what: str):
     return max_abs
 
 
+def compare_hit(tile_kernels, args, kwargs, what: str) -> float:
+    """Chunked closest hit, kernel against plain on the same CUDA tensors."""
+    t_k, r_k = tile_kernels.closest_hit_spheres_tiles_cuda(*args, **kwargs)
+    t_p, r_p = tile_kernels.closest_hit_spheres_tiles_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = max(float((t_k - t_p).abs().max()), float((r_k - r_p).abs().max()))
+    hits = int((t_p < 1e17).sum())
+    print(f"  {what}: {t_p.numel()} rays, {hits} hit, max |diff| of t and record "
+          f"{err:.3e} (allowed {TOL_HIT})")
+    if not bool(torch.isfinite(t_k).all()) or not err <= TOL_HIT:
+        fail(f"{what}: the closest-hit kernel disagrees with its plain version")
+    if hits == 0:
+        fail(f"{what}: no ray hits")
+    return err
+
+
+def compare_filt(tile_kernels, args, kwargs, what: str) -> float:
+    """Shadow filter, kernel against plain on the same CUDA tensors."""
+    f_k = tile_kernels.shadow_filter_tiles_cuda(*args, **kwargs)
+    f_p = tile_kernels.shadow_filter_tiles_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    n_bad = int((f_k != f_p).sum())
+    lit = int((args[2] > 0).sum())
+    print(f"  {what}: {f_p.numel()} rays, {lit} lit, {int((f_p == 0).sum())} "
+          f"blocked, filters that differ {n_bad} (allowed "
+          f"{int(TOL_FILT * f_p.numel())})")
+    if n_bad > TOL_FILT * f_p.numel():
+        fail(f"{what}: the shadow-filter kernel disagrees with its plain version")
+    return float((f_k - f_p).abs().max())
+
+
+def compare_images(img_a, img_b, what: str) -> float:
+    """Two (H, W, 3) float frames, by compare()'s bounds."""
+    d = (img_a - img_b).abs().amax(dim=-1)
+    n_bad = int((d > TOL_PIXEL_DIFF).sum())
+    mean = float((img_a - img_b).abs().mean())
+    print(f"  {what}: pixels > {TOL_PIXEL_DIFF}: {n_bad} (allowed {TOL_PIXELS}), "
+          f"mean |diff| {mean:.3e} (allowed {TOL_MEAN}), max |diff| "
+          f"{float(d.max()):.3e}")
+    if not bool(torch.isfinite(img_a).all()) or float(img_b.std()) < 0.02:
+        fail(f"{what}: a frame is not finite or flat")
+    if n_bad > TOL_PIXELS or not mean < TOL_MEAN:
+        fail(f"{what}: the frames disagree")
+    return float(d.max())
+
+
+def compare_levels(img_a, img_b, what: str, share: float) -> int:
+    """Two uint8 frames: the pixels off by more than one level, at most
+    ``share`` of them."""
+    a = torch.as_tensor(img_a)[..., :3].cpu().to(torch.int32)
+    b = torch.as_tensor(img_b)[..., :3].cpu().to(torch.int32)
+    n_bad = int(((a - b).abs().amax(dim=-1) > 1).sum())
+    allowed = math.ceil(share * a.shape[0] * a.shape[1])
+    print(f"  {what}: pixels off by more than one level: {n_bad} of "
+          f"{a.shape[0] * a.shape[1]} (allowed {allowed})")
+    if float(a.float().std()) <= 1 or n_bad > allowed:
+        fail(f"{what}: the frames disagree or are flat")
+    return n_bad
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
 
     from mdapy_tpu_torch import TachyonRender, preset_camera
-    from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render import megakernel, tile_kernels, tracer_tiled
     from mdapy_tpu_torch.render import render as trender
-    from mdapy_tpu_torch.render._build import load_mega_render
+    from mdapy_tpu_torch.render._build import load_all
     from mdapy_tpu_torch.render.accel import (
         build_light_bins, build_light_records, build_screen_bins,
         gather_other_records, occluder_records, other_table,
@@ -317,11 +520,15 @@ def main() -> None:
     print(f"card: {card}")
 
     # ---- 1. build -------------------------------------------------------
-    lib = load_mega_render()
-    print(f"[1] built {lib.path.name} in {lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip())
+    t0 = time.perf_counter()
+    libs = load_all()
+    print(f"[1] built {len(libs)} libraries together in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs.values():
+        print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
+        for line in lib.log.splitlines():
+            if "Used" in line or "spill" in line:
+                print("    " + line.strip())
 
     def prepare(pos, colors, radii, cam, width, height, cfg, grid=32):
         scene = build_scene(pos, colors, radii, device=dev)
@@ -429,6 +636,96 @@ def main() -> None:
         del ren_b
     trender.AO_EXACT_MAX_SPHERES = ao_exact
 
+    # (i), (j): the tiled tracer's two kernels, on the arguments the path
+    # gives them, and the frame against the plain route on the same tensors
+    tile_errs = {"closest_hit_spheres_tiles": [], "shadow_filter_tiles": []}
+    plain_route = dict(
+        closest_hit_spheres_tiles=tile_kernels.closest_hit_spheres_tiles_plain,
+        shadow_filter_tiles=tile_kernels.shadow_filter_tiles_plain)
+    pos, colors, radii = fcc_block(8, seed=3)
+    for case, preset, aa, relit in (("i", "perspective", 2, True),
+                                    ("j", "top", 0, False)):
+        cam = preset_camera(preset, pos, max_radius=1.28)
+        cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_enabled=False,
+                           shadows_enabled=True)
+        scene = build_scene(pos, colors, radii, device=dev)
+        frame = camera_frame(cam, 320, 240)
+        if relit:
+            # the presets' light shines along the view and lights almost no
+            # visible point; from beside the camera it lights them
+            right = np.asarray(frame["iplaneright"], np.float64)
+            L = -np.asarray(frame["view"]) + 0.8 * right / np.linalg.norm(right)
+            frame = dict(frame, light_dir=L / np.linalg.norm(L))
+        bins = build_screen_bins(scene, frame, 320, 240)
+        lb = build_light_bins(scene, frame["light_dir"], grid=32)
+        cd = gather_chunk_data(bins.sph_chunks, scene.sph_center,
+                               scene.sph_radius, scene.sph_color)
+        lrec = build_light_records(lb, scene)
+
+        def small_frame():
+            return tracer_tiled.render_image_pallas_banded(
+                scene, bins, cd, lb, frame, cfg, 320, 240, 0, light_records=lrec)
+
+        rec_hit = Recorder(tile_kernels.closest_hit_spheres_tiles)
+        rec_sh = Recorder(tile_kernels.shadow_filter_tiles)
+        tile_kernels.reset_launches()
+        with swapped(tile_kernels, closest_hit_spheres_tiles=rec_hit,
+                     shadow_filter_tiles=rec_sh):
+            img_k = small_frame()
+        if list(tile_kernels.launches.values()) != [1, 1]:
+            fail(f"[2{case}] kernel launches {tile_kernels.launches}")
+        with swapped(tile_kernels, **plain_route):
+            img_p = small_frame()
+        what = f"[2{case}] {len(pos)} atoms 320x240 {preset} S={aa + 1}"
+        (hargs, hkw), (sargs, skw) = rec_hit.calls[0], rec_sh.calls[0]
+        n_out = int((hargs[2] == -1e18).sum())
+        n_empty = int((bins.sph_zmin[:, 0] >= 1e17).sum())
+        print(f"  {what}: {n_out} rays leave the scene box (tcap -1e18), "
+              f"{n_empty} tiles without a candidate")
+        if n_out == 0 or (case == "i" and n_empty == 0):
+            fail(f"{what}: no ray leaves the box, or no tile is empty")
+        tile_errs["closest_hit_spheres_tiles"].append(
+            compare_hit(tile_kernels, hargs, hkw, what + " closest hit"))
+        tile_errs["shadow_filter_tiles"].append(
+            compare_filt(tile_kernels, sargs, skw, what + " shadow filter"))
+        compare_images(img_k, img_p, what + " render_image_pallas, kernels "
+                       "against the plain route")
+    del scene, bins, lb, cd, lrec, rec_hit, rec_sh, img_k, img_p
+
+    # (k), (l): the bond scene past the megakernel's limit, and its bonds and
+    # cell alone, through TachyonRender on the card and on the CPU
+    shadow_max = trender.OTHER_SHADOW_MAX
+    trender.OTHER_SHADOW_MAX = 100
+    cam = preset_camera("perspective", np.r_[small.get_positions(),
+                                             box_edges(small.box)[:, 0]],
+                        max_radius=0.5)
+    none = (np.zeros((0, 3)), np.zeros((0, 4), np.float32), np.zeros(0, np.float32))
+    for case, atoms, route in (("k", (small.get_positions(), colors_b, radii_b), "pallas"),
+                               ("l", none, "tiled")):
+        kw = dict(camera=cam, bond_edges=bonds_b, bond_radius=0.2,
+                  box_edges=box_edges(small.box), box_edge_radius=0.1,
+                  width=320, height=240)
+        ren_b = TachyonRender(backend="cuda", ao=False, aa_samples=2)
+        tile_kernels.reset_launches()
+        img_k = ren_b.render(*atoms, device_output=True, **kw)
+        n_launch = tile_kernels.launches["closest_hit_spheres_tiles"]
+        if ren_b._route_name != route or n_launch != (1 if case == "k" else 0):
+            fail(f"[2{case}] route {ren_b._route_name}, {n_launch} launches")
+        what = f"[2{case}] {len(atoms[0])} atoms + bonds and cell 320x240 S=3, {route}"
+        if case == "k":
+            with swapped(tile_kernels, **plain_route):
+                img_p = ren_b.render(*atoms, device_output=True, **kw)
+            if not torch.equal(img_k, img_p):
+                compare_levels(img_k, img_p, what + ": kernel against the plain "
+                               "route", 0.0)
+            print(f"  {what}: kernel route equals the plain route")
+        img_c = TachyonRender(backend="cpu", ao=False, aa_samples=2).render(
+            *atoms, device_output=True, **kw)
+        compare_levels(img_k, img_c, what + ': card against backend="cpu"',
+                       TOL_LEVELS)
+        del ren_b
+    trender.OTHER_SHADOW_MAX = shadow_max
+
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
     pos, colors, radii = fcc_block(63)
@@ -506,6 +803,120 @@ def main() -> None:
     print(f"  headline band of {band[1] - band[0]} tiles on {card}: kernel "
           f"{band_ms:.3f} ms, plain {plain_ms:.3f} ms; work {work}, {ops:.4g} "
           f"fp32 operations, bound {bound_ms:.4f} ms by {bound_by}")
+    # ---- 8. the tiled tracer's kernels on the headline scene ------------------
+    lrec3 = (lights_main.lrec, lights_main.loffs[0].contiguous(),
+             lights_main.lcnt[0].contiguous())
+
+    def tiled_frame(config=cfg, quantized=True):
+        img = tracer_tiled.render_image_pallas_banded(
+            scene, frame_bins, chunk_data, lb, frame, config, width, height, 0,
+            light_records=lrec3)
+        if quantized:
+            img = torch.clamp(torch.round(img * 255.0), 0.0, 255.0).to(torch.uint8)
+        return img
+
+    torch.cuda.reset_peak_memory_stats()
+    tile_kernels.reset_launches()
+    img8, t_first8 = sync_time(tiled_frame)
+    img8, t_warm8 = sync_time(lambda: [tiled_frame() for _ in range(WARM_FRAMES)][-1])
+    t_warm8 /= WARM_FRAMES
+    launches8 = dict(tile_kernels.launches)
+    peak8 = torch.cuda.max_memory_allocated()
+    nbands = -(-frame_bins.tiles_y // max(1, tracer_tiled.BAND_TILES // frame_bins.tiles_x))
+    print(f"[8] {card}: the headline scene through render_image_pallas in "
+          f"{nbands} bands, {width}x{height} S={S} shadows: first frame "
+          f"{t_first8 * 1e3:.1f} ms, warm {t_warm8 * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames ({width * height * S * 2 / t_warm8 / 1e9:.4f} "
+          f"Grays/s) against the megakernel's {headline_warm_ms:.3f} ms/frame "
+          f"in phase 3; peak allocated {peak8} bytes; kernel launches {launches8}")
+    if any(n != nbands * (1 + WARM_FRAMES) for n in launches8.values()):
+        fail(f"the tiled tracer launched its kernels {launches8} times over "
+             f"{1 + WARM_FRAMES} frames of {nbands} bands")
+    if tuple(img8.shape) != (height, width, 3) or not float(img8.float().std()) > 1:
+        fail("the tiled tracer's headline frame is wrong or flat")
+    # each kernel's time and launches in one frame, and one band's arguments
+    rec_hit = Recorder(tile_kernels.closest_hit_spheres_tiles)
+    rec_sh = Recorder(tile_kernels.shadow_filter_tiles)
+    tile_kernels.reset_launches()
+    with swapped(tile_kernels, closest_hit_spheres_tiles=rec_hit,
+                 shadow_filter_tiles=rec_sh):
+        tiled_frame()
+    per_frame8 = dict(tile_kernels.launches)
+    b2_frame_ms, b3_frame_ms = rec_hit.total_ms(), rec_sh.total_ms()
+    (hargs, hkw), (sargs, skw) = rec_hit.calls[1], rec_sh.calls[1]
+    del rec_hit, rec_sh
+    print(f"  one frame: launches counted {per_frame8}; closest hit "
+          f"{b2_frame_ms:.3f} ms, shadow filter {b3_frame_ms:.3f} ms; the "
+          f"torch passes around them {t_warm8 * 1e3 - b2_frame_ms - b3_frame_ms:.1f} ms")
+    if any(n != nbands for n in per_frame8.values()):
+        fail(f"one frame of {nbands} bands launched {per_frame8}")
+    what = f"[8] band of {hargs[0].shape[0]} tiles x {hargs[0].shape[1]} rays"
+    tile_errs["closest_hit_spheres_tiles"].append(
+        compare_hit(tile_kernels, hargs, hkw, what + " closest hit"))
+    tile_errs["shadow_filter_tiles"].append(
+        compare_filt(tile_kernels, sargs, skw, what + " shadow filter"))
+    b2_ms = event_ms(lambda: tile_kernels.closest_hit_spheres_tiles_cuda(*hargs, **hkw), 5)
+    b3_ms = event_ms(lambda: tile_kernels.shadow_filter_tiles_cuda(*sargs, **skw), 5)
+    _, t_b2_plain = sync_time(
+        lambda: tile_kernels.closest_hit_spheres_tiles_plain(*hargs, **hkw))
+    _, t_b3_plain = sync_time(
+        lambda: tile_kernels.shadow_filter_tiles_plain(*sargs, **skw))
+    hit_work = megakernel.count_work(
+        tile_kernels.closest_hit_spheres_tiles_plain, *hargs, **hkw)
+    b2_bound_ms, b2_by, b2_hits, b2_winners = hit_bound(
+        hit_work.get("sphere", 0), hargs,
+        *tile_kernels.closest_hit_spheres_tiles_cuda(*hargs, **hkw))
+    b3_bound_ms, b3_by, filt_work = filt_bound(megakernel, sargs, skw)
+    print(f"  closest hit on the band on {card}: kernel {b2_ms:.3f} ms, plain "
+          f"{t_b2_plain * 1e3:.1f} ms; work {hit_work}, {b2_hits} rays hit "
+          f"{b2_winners} distinct records, bound {b2_bound_ms:.4f} ms by "
+          f"{b2_by} (roofline share {b2_bound_ms / b2_ms:.2%})")
+    print(f"  shadow filter on the band on {card}: kernel {b3_ms:.3f} ms, plain "
+          f"{t_b3_plain * 1e3:.1f} ms; work {filt_work}, bound "
+          f"{b3_bound_ms:.4f} ms by {b3_by} (roofline share "
+          f"{b3_bound_ms / b3_ms:.2%})")
+    # the preset's light shines along the view and lights few visible points,
+    # so few walks run; the same band lit from beside the camera
+    right = np.asarray(frame["iplaneright"], np.float64)
+    L = -np.asarray(frame["view"]) + 0.8 * right / np.linalg.norm(right)
+    frame_r = dict(frame, light_dir=L / np.linalg.norm(L))
+    lb_r = build_light_bins(scene, frame_r["light_dir"], grid=32)
+    lrec_r = build_light_records(lb_r, scene)
+    rows8 = max(1, tracer_tiled.BAND_TILES // frame_bins.tiles_x)
+    ty0, ty1 = rows8, min(frame_bins.tiles_y, 2 * rows8)
+    b0, b1 = ty0 * frame_bins.tiles_x, ty1 * frame_bins.tiles_x
+    rec_sh = Recorder(tile_kernels.shadow_filter_tiles)
+    with swapped(tile_kernels, shadow_filter_tiles=rec_sh):
+        tracer_tiled.render_image_pallas(
+            scene, tracer_tiled.band_bins(frame_bins, ty0, ty1),
+            chunk_data[b0:b1], lb_r, *(frame_r[k] for k in (
+                "origin", "lowleft", "iplaneright", "iplaneup", "view",
+                "light_dir")), cfg, width, (ty1 - ty0) * frame_bins.tile_px,
+            True, 0, frame_bins.tile_px, frame_bins.tiles_x, ty1 - ty0,
+            ty_offset=ty0, do_flip=False, light_records=lrec_r)
+    (rargs, rkw), = rec_sh.calls
+    del rec_sh, lb_r
+    tile_errs["shadow_filter_tiles"].append(
+        compare_filt(tile_kernels, rargs, rkw, what + " shadow filter, relit"))
+    b3r_ms = event_ms(lambda: tile_kernels.shadow_filter_tiles_cuda(*rargs, **rkw), 5)
+    _, t_b3r_plain = sync_time(
+        lambda: tile_kernels.shadow_filter_tiles_plain(*rargs, **rkw))
+    b3r_bound_ms, b3r_by, relit_work = filt_bound(megakernel, rargs, rkw)
+    print(f"  shadow filter on the band, relit, on {card}: kernel {b3r_ms:.3f} "
+          f"ms, plain {t_b3r_plain * 1e3:.1f} ms; work {relit_work}, bound "
+          f"{b3r_bound_ms:.4f} ms by {b3r_by} (roofline share "
+          f"{b3r_bound_ms / b3r_ms:.2%})")
+    if relit_work["lit"] < 10 * filt_work["lit"]:
+        fail(f"the relit band lights {relit_work['lit']} rays, the preset's "
+             f"{filt_work['lit']}")
+    del hargs, sargs, rargs, lrec_r
+    # AA off: the megakernel and the tiled tracer draw the same picture
+    ren1 = TachyonRender(backend="cuda", ao=False, antialiasing=False)
+    img_m = ren1.render(pos, colors, radii, camera=cam, width=width,
+                        height=height, device_output=True)
+    compare_levels(tiled_frame(config=ren1._cfg), img_m, "[8] AA off, the "
+                   "tiled tracer against the megakernel", 4 / 7680)
+    del ren1, img_m, img8, lrec3
     del ren, args, chunk_data, lights_main, frame_bins, scene, bins, lb, cd, lrec
     torch.cuda.empty_cache()
 
@@ -542,6 +953,7 @@ def main() -> None:
     c2_launches = megakernel.launches
     c2_peak = torch.cuda.max_memory_allocated()
     t_warm /= WARM_FRAMES
+    config2_warm_ms = t_warm * 1e3
     (frame, frame_bins, chunk_data, lights, params), other = ren._accel, ren._other
     n_cyl = int((ren._scene[0].cyl_radius > 0).sum())
     n_ring = int((ren._scene[0].ring_rout > 0).sum())
@@ -628,6 +1040,95 @@ def main() -> None:
           f"{ops:.4g} fp32 operations, bound {c2_bound_ms:.4f} ms by "
           f"{c2_bound_by}")
     del ren, args, chunk_data, lights, frame_bins, other, img, _
+    torch.cuda.empty_cache()
+
+    # ---- 7. the heavy-bond frame: 7x7x7 BCC Fe, past the megakernel's limit ----
+    fe7 = bcc_system(7)
+    pos7 = fe7.get_positions()
+    rad7 = np.full(fe7.N, 0.5, np.float32)
+    cam7 = preset_camera("perspective", pos7, max_radius=0.5)
+    ren = TachyonRender(backend="cuda", ao=False)
+    torch.cuda.reset_peak_memory_stats()
+    megakernel.reset_launches()
+    tile_kernels.reset_launches()
+    rgba, t_sys = sync_time(lambda: ren.render_system(
+        fe7, radii=rad7, camera=cam7, draw_bond=True, bond_radius=0.2,
+        width=width, height=height))
+    if rgba.shape != (height, width, 4) or not float(rgba[..., :3].std()) > 1:
+        fail(f"the heavy-bond render_system frame {rgba.shape} is wrong or flat")
+    colors7 = trender._default_colors(fe7)
+    cell7 = box_edges(fe7.box)
+    bonds7 = bond_edges(pos7, fe7.box, fe7.bond, colors7, rad7, 0.2)[0]
+    ren = TachyonRender(backend="cuda", ao=False)
+
+    def heavy_frame():
+        return ren.render(pos7, colors7, rad7, camera=cam7, bond_edges=bonds7,
+                          bond_radius=0.2, box_edges=cell7, width=width,
+                          height=height, device_output=True)
+
+    img, t_first = sync_time(heavy_frame)
+    img, t_warm = sync_time(lambda: [heavy_frame() for _ in range(WARM_FRAMES)][-1])
+    t_warm /= WARM_FRAMES
+    launches7 = dict(tile_kernels.launches)
+    peak7 = torch.cuda.max_memory_allocated()
+    (frame, frame_bins, chunk_data, lb7), other = ren._accel, ren._other
+    n_cyl = int((ren._scene[0].cyl_radius > 0).sum())
+    n_ring = int((ren._scene[0].ring_rout > 0).sum())
+    nbands = -(-frame_bins.tiles_y // max(1, tracer_tiled.BAND_TILES // frame_bins.tiles_x))
+    print(f"[7] heavy bonds: {fe7.N} atoms, {len(fe7.bond)} bonds -> "
+          f"{len(bonds7)} segments + {len(cell7)} cell edges = {n_cyl} cylinders "
+          f"and {n_ring} rings, {n_cyl + n_ring} primitives (the megakernel "
+          f"takes at most {trender.OTHER_SHADOW_MAX} with shadows); widest tile "
+          f"{int(other.ocnt.max())} cyl/rings, {other.orec.shape[0]} records "
+          f"over {int((other.ocnt > 0).sum())} tiles; route: "
+          f"{ren._route_name}, {nbands} bands")
+    if ren._route_name != "pallas" or n_cyl + n_ring <= trender.OTHER_SHADOW_MAX:
+        fail(f"the 7x7x7 frame took the route {ren._route_name}")
+    if lb7.cyl is None or lb7.ring is None:
+        fail("the heavy-bond frame lacks the light cells of three kinds")
+    if (launches7 != {"closest_hit_spheres_tiles": nbands * (2 + WARM_FRAMES),
+                      "shadow_filter_tiles": 0} or megakernel.launches != 0):
+        fail(f"the {2 + WARM_FRAMES} heavy-bond frames of {nbands} bands "
+             f"launched {launches7}, the megakernel {megakernel.launches} times")
+    if img.dtype != torch.uint8 or tuple(img.shape) != (height, width, 3):
+        fail(f"heavy-bond image is {img.dtype} {tuple(img.shape)}")
+    if not float(img.float().std()) > 1:
+        fail("the heavy-bond image is flat")
+    print(f"[7] {card}: 7x7x7 BCC Fe + bonds {width}x{height} S={S} shadows: "
+          f"render_system frame {t_sys * 1e3:.1f} ms, first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames, {width * height * S * 2 / t_warm / 1e9:.4f} "
+          f"Grays/s, peak allocated {peak7} bytes; phase 5's 6x6x6 frame "
+          f"(megakernel) warm {config2_warm_ms:.3f} ms/frame in this run "
+          f"({t_warm * 1e3 / config2_warm_ms:.0f}x)")
+    # the layers of one warm frame, each bracketed by synchronize
+    watch = {name: Stopwatch(getattr(tracer_tiled, name))
+             for name in ("_raygen", "_closest", "_other_hit", "_shade",
+                          "_shadow_filter_lb")}
+    rec_hit = Recorder(tile_kernels.closest_hit_spheres_tiles)
+    tile_kernels.reset_launches()
+    with swapped(tracer_tiled, **watch), swapped(
+            tile_kernels, closest_hit_spheres_tiles=rec_hit):
+        _, t_layers = sync_time(heavy_frame)
+    per_frame7 = tile_kernels.launches["closest_hit_spheres_tiles"]
+    if per_frame7 != nbands:
+        fail(f"one heavy-bond frame of {nbands} bands launched the closest "
+             f"hit {per_frame7} times")
+    b2_heavy_ms = rec_hit.total_ms()
+    ms = {k: w.seconds * 1e3 for k, w in watch.items()}
+    print(f"  layers of a frame of {t_layers * 1e3:.1f} ms: jitter (kept) + raygen "
+          f"{ms['_raygen']:.1f} ms, chunked closest hit {b2_heavy_ms:.3f} ms "
+          f"({per_frame7} launches counted), cylinder/ring merge {ms['_other_hit']:.1f} ms, "
+          f"box cap + normals + winners "
+          f"{ms['_closest'] - ms['_other_hit'] - b2_heavy_ms:.1f} ms, shadow pass "
+          f"{ms['_shadow_filter_lb']:.1f} ms, shading and mean "
+          f"{ms['_shade'] - ms['_shadow_filter_lb']:.1f} ms, host and assembly "
+          f"{t_layers * 1e3 - ms['_raygen'] - ms['_closest'] - ms['_shade']:.1f} ms")
+    hargs, hkw = rec_hit.calls[1]
+    tile_errs["closest_hit_spheres_tiles"].append(compare_hit(
+        tile_kernels, hargs, hkw, f"[7] band of {hargs[0].shape[0]} tiles x "
+        f"{hargs[0].shape[1]} rays closest hit"))
+    del ren, rec_hit, hargs, chunk_data, frame_bins, other, img, lb7, watch
     torch.cuda.empty_cache()
 
     # ---- 4. BASELINE config 3: ~1M-atom polycrystal with fast AO ------------
@@ -755,8 +1256,15 @@ def main() -> None:
     band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
     ao_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
     ao_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    work = megakernel.plain_work(*args, tiles=band, **kw)
+    ao_bound_ms, ao_bound_by, ops = bound(work, band_bytes(
+        work, band[1] - band[0], S, lights=lights))
     print(f"  AO band of {band[1] - band[0]} tiles on {card}: kernel "
-          f"{ao_band_ms:.3f} ms, plain {ao_plain_ms:.3f} ms")
+          f"{ao_band_ms:.3f} ms, plain {ao_plain_ms:.3f} ms; work {work}, "
+          f"{ops:.4g} fp32 operations, bound {ao_bound_ms:.4f} ms by "
+          f"{ao_bound_by}")
+    frame_bound("config 3", megakernel.plain_work(*args, **kw), ao_kernel_ms,
+                frame_bins.sph_zmin.shape[0], S, lights=lights)
     print(f"[3+4] {card}: headline (1 light) warm {headline_warm_ms:.3f} ms/frame, "
           f"config 3 (AO) warm {t_warm * 1e3:.3f} ms/frame")
     config3_warm_ms = t_warm * 1e3
@@ -838,12 +1346,49 @@ def main() -> None:
         "library_ms": None,
         "ao_ms": ao_band_ms,
         "ao_plain_ms": ao_plain_ms,
+        "ao_bound_ms": ao_bound_ms,
+        "ao_bound_by": ao_bound_by,
         "config3_cell_ms": box_band_ms,
         "config3_cell_plain_ms": box_plain_ms,
         "config2_ms": c2_band_ms,
         "config2_plain_ms": c2_plain_ms,
         "config2_bound_ms": c2_bound_ms,
         "config2_bound_by": c2_bound_by,
+    }, {
+        "name": "closest_hit_spheres_tiles",
+        "route": "cuda",
+        "source": "mdapy_tpu_torch/csrc/tile_kernels.cu",
+        "replaces": "mdapy_tpu/render/pallas_kernels.py:97",
+        "launches": launches8["closest_hit_spheres_tiles"]
+        + launches7["closest_hit_spheres_tiles"],
+        "launches_per_frame": per_frame8["closest_hit_spheres_tiles"],
+        "heavy_bond_launches_per_frame": per_frame7,
+        "max_abs_err": max(tile_errs["closest_hit_spheres_tiles"]),
+        "ms": b2_ms,
+        "plain_ms": t_b2_plain * 1e3,
+        "bound_ms": b2_bound_ms,
+        "bound_by": b2_by,
+        "library_ms": None,
+        "frame_ms": b2_frame_ms,
+        "heavy_bond_frame_ms": b2_heavy_ms,
+    }, {
+        "name": "shadow_filter_tiles",
+        "route": "cuda",
+        "source": "mdapy_tpu_torch/csrc/tile_kernels.cu",
+        "replaces": "mdapy_tpu/render/pallas_kernels.py:220",
+        "launches": launches8["shadow_filter_tiles"],
+        "launches_per_frame": per_frame8["shadow_filter_tiles"],
+        "max_abs_err": max(tile_errs["shadow_filter_tiles"]),
+        "ms": b3_ms,
+        "plain_ms": t_b3_plain * 1e3,
+        "bound_ms": b3_bound_ms,
+        "bound_by": b3_by,
+        "library_ms": None,
+        "frame_ms": b3_frame_ms,
+        "relit_ms": b3r_ms,
+        "relit_plain_ms": t_b3r_plain * 1e3,
+        "relit_bound_ms": b3r_bound_ms,
+        "relit_bound_by": b3r_by,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -61,21 +61,21 @@
 // shared library with a plain C interface (ctypes).  It is compiled with
 // -fmad=false so that a*b+c rounds twice, as the plain torch version does.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "render_common.cuh"
 
 namespace {
 
+using render::BIG;
+using render::BIG_DEPTH;
+using render::CH;
+using render::sphere_root;
+
 constexpr int TILE = 16;
 constexpr int P = TILE * TILE;   // pixels per tile = threads per block
-constexpr int CH = 128;          // candidates per chunk
 constexpr int SG = 8;            // most AA samples traced per chunk walk
 constexpr int MAX_LIGHTS = 64;   // lights a launch takes (one mask bit each)
 constexpr int OCB = P;           // cyl/ring records staged per batch
 constexpr int OTHER_BIT = 1 << 30;  // winner index flag: a cyl/ring record
-constexpr float BIG = 1e18f;
-constexpr float BIG_DEPTH = 1e17f;
 constexpr float MINCONTRIB = 1.0f / 512.0f;
 
 // (tile, sample, pixel) -> jitter in [-0.5, 0.5): the JAX package's int32
@@ -103,21 +103,12 @@ __device__ __forceinline__ void axis_exit(float o, float d, float lo, float hi,
   tf = fmaxf(t0, t1);
 }
 
-// Block-wide max; every thread gets the result.
 __device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // red may still be read by the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < P / 32; ++w) r = fmaxf(r, red[w]);
-  return r;
+  return render::block_max<P>(v, red);
 }
 
-// True when a record of the point's light-grid cell blocks it: the cell's
-// records run by descending far key, so the walk stops at the first occluder
-// or once key <= tau + eps, after which no record can occlude.
+// True when a record of the point's light-grid cell blocks it (the walk of
+// render_common.cuh, behind the cell's max-key gate).
 __device__ __forceinline__ bool occluded(const float4* __restrict__ lrec,
                                          const int* __restrict__ loffs,
                                          const int* __restrict__ lcnt,
@@ -126,17 +117,7 @@ __device__ __forceinline__ bool occluded(const float4* __restrict__ lrec,
                                          float tau_eps) {
   const int cnt = lcnt[cell];
   if (!(cnt > 0 && lkmax[cell] > tau_eps)) return false;
-  const float4* rp = lrec + 2 * (size_t)loffs[cell];
-  for (int i = 0; i < cnt; ++i) {
-    const float4 a = rp[2 * i];      // cu, cv, ck, r
-    const float key = rp[2 * i + 1].x;
-    if (key <= tau_eps) return false;
-    const float du = a.x - u, dv = a.y - v;
-    const float s2 = a.w * a.w - (du * du + dv * dv);
-    const float q = tau_eps - a.z;
-    if (s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q)) return true;
-  }
-  return false;
+  return render::walk_cell(lrec + 2 * (size_t)loffs[cell], cnt, u, v, tau_eps);
 }
 
 // Shadow test of hit point h toward the light of row lp (dir, e1, e2, org,
@@ -479,10 +460,7 @@ mega_render_kernel(const float* __restrict__ params,
             }
             const float disc = b * b - ccb;
             if (disc >= 0.0f) {
-              const float sq = sqrtf(disc);
-              const float t1 = -b - sq;
-              const float t2 = sq - b;
-              const float t = t1 > eps ? t1 : (t2 > eps ? t2 : BIG);
+              const float t = sphere_root(b, disc, eps);
               if (t < bt[k]) {
                 bt[k] = t;
                 bidx[k] = c * CH + j;

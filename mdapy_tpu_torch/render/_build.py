@@ -1,10 +1,12 @@
-"""Build and bind the hand CUDA kernel at first use.
+"""Build and bind the hand CUDA kernels at first use.
 
-``nvcc`` compiles ``mdapy_tpu_torch/csrc/mega_render.cu`` for ``sm_90a`` into
-a shared library with a plain C interface, which ``ctypes`` loads.  The
-library lands in ``mdapy_tpu_torch/_build/`` (git-ignored) under a name that
-hashes the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time.
+``nvcc`` compiles each source of ``mdapy_tpu_torch/csrc/`` (``mega_render.cu``,
+``tile_kernels.cu``) for ``sm_90a`` into a shared library with a plain C
+interface, which ``ctypes`` loads.  A library lands in
+``mdapy_tpu_torch/_build/`` (git-ignored) under a name that hashes the
+source, the headers it includes and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  ``load_all`` starts every build at
+once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "load_mega_render", "NVCC_FLAGS"]
+__all__ = ["KernelLibrary", "load_all", "load_mega_render",
+           "load_tile_kernels", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +40,24 @@ _MEGA_ARGTYPES = (
     + [_c.c_float, _c.c_float]                         # eps, inv_s
     + [_c.c_int, _c.c_int, _c.c_int, _c.c_void_p]      # perspective, shadows, other, stream
 )
+_HIT_ARGTYPES = (
+    [_c.c_void_p] * 7                                  # o, d, tcap, zmin, chunks, best_t, rec
+    + [_c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_void_p]   # nb, R, nchunks, eps, stream
+)
+_SHADOW_ARGTYPES = (
+    [_c.c_void_p] * 7                                  # uvt, cellxy, lit, lrec, offs, cnt, filt
+    + [_c.c_longlong, _c.c_int, _c.c_float, _c.c_void_p]        # n, grid_n, eps, stream
+)
+# headers every source includes; they enter each library's digest
+_HEADERS = ("render_common.cuh",)
+# library -> (source, {entry point: argtypes})
+_LIBRARIES = {
+    "mega_render": ("mega_render.cu", {"mega_render_launch": _MEGA_ARGTYPES}),
+    "tile_kernels": ("tile_kernels.cu", {
+        "closest_hit_spheres_launch": _HIT_ARGTYPES,
+        "shadow_filter_launch": _SHADOW_ARGTYPES,
+    }),
+}
 
 
 @dataclass
@@ -61,7 +83,8 @@ def _nvcc() -> str:
 
 def _build(src: Path, stem: str) -> tuple:
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in _HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     so = BUILD_DIR / f"{stem}_{digest}.so"
     log_path = so.with_suffix(".log")
@@ -84,13 +107,36 @@ def _build(src: Path, stem: str) -> tuple:
     return so, seconds, log
 
 
-def load_mega_render() -> KernelLibrary:
-    """Build (if needed) and load the render kernel's library."""
-    if "mega_render" not in _loaded:
-        so, seconds, log = _build(CSRC / "mega_render.cu", "mega_render")
+def _load(stem: str, built=None) -> KernelLibrary:
+    if stem not in _loaded:
+        source, entries = _LIBRARIES[stem]
+        so, seconds, log = built or _build(CSRC / source, stem)
         lib = ctypes.CDLL(str(so))
-        fn = lib.mega_render_launch
-        fn.argtypes = _MEGA_ARGTYPES
-        fn.restype = ctypes.c_int
-        _loaded["mega_render"] = KernelLibrary(lib, so, seconds, log)
-    return _loaded["mega_render"]
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded[stem] = KernelLibrary(lib, so, seconds, log)
+    return _loaded[stem]
+
+
+def load_mega_render() -> KernelLibrary:
+    """Build (if needed) and load the render megakernel's library."""
+    return _load("mega_render")
+
+
+def load_tile_kernels() -> KernelLibrary:
+    """Build (if needed) and load the tiled tracer's kernels (the chunked
+    sphere closest hit and the shadow filter)."""
+    return _load("tile_kernels")
+
+
+def load_all() -> dict:
+    """Build every library, one nvcc per source and all started together,
+    and load them: {name: KernelLibrary}."""
+    with ThreadPoolExecutor(len(_LIBRARIES)) as pool:
+        builds = {stem: pool.submit(_build, CSRC / source, stem)
+                  for stem, (source, _) in _LIBRARIES.items()
+                  if stem not in _loaded}
+    return {stem: _load(stem, builds[stem].result() if stem in builds else None)
+            for stem in _LIBRARIES}

@@ -12,7 +12,9 @@ Port of ``mdapy_tpu/render/accel.py``:
   * light-grid bins (``build_light_bins`` :528): a 2D grid perpendicular to
     the directional light, framed over every kind (:533-539); each cell
     lists the spheres whose lateral footprint overlaps it, sorted by
-    descending far-depth key c.L + r;
+    descending far-depth key c.L + r, and, on request, the cylinders and
+    rings by their bounding spheres (``_prim_bounds`` :378), which the tiled
+    tracer's shadow pass reads (``tracer_tiled._shadow_filter_lb``);
   * light records (``build_light_records`` :613): the CSR rows
     ``[cu, cv, ck, r, key, alpha, 0, 0]`` the shadow sweep reads, with the
     per-cell maximum key ``lkmax``;
@@ -29,8 +31,11 @@ and are dropped; the chunk width stays 128, and the cyl/ring lists and
 occluder tables are compact, not padded to 128 lanes.  So is
 ``scene_live_counts`` (accel.py:362): the JAX build needs live counts to
 size static shapes and to skip empty primitive kinds, and the pair
-expansion here needs neither.  The JAX light build also bins the cylinders
-and rings into the light grid, which no kernel reads; that is left out.
+expansion here needs neither.  The light cells of all three kinds are compact
+CSR lists in descending key order, where the JAX build pads each kind to a
+dense (ncells, K) table in ascending order; no candidate is cut in either.
+The megakernel reads the sphere cells only, so the cylinder and ring cells
+are built only when ``build_light_bins`` is asked for them.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "ScreenBins", "LightBins", "build_screen_bins", "build_light_bins",
+    "ScreenBins", "LightBins", "LightKind", "build_screen_bins",
+    "build_light_bins",
     "build_light_records", "other_table", "gather_other_records",
     "occluder_records",
 ]
@@ -66,6 +72,15 @@ class ScreenBins(NamedTuple):
     k_other: int = 0
 
 
+class LightKind(NamedTuple):
+    """One primitive kind's light cells, compact CSR."""
+
+    ids: torch.Tensor     # (M,) ids within the kind, by cell, then descending key
+    keys: torch.Tensor    # (M,) far-depth key c.L + r of each entry's bound
+    offs: torch.Tensor    # (ncells,) int64 CSR starts
+    count: torch.Tensor   # (ncells,) int64
+
+
 class LightBins(NamedTuple):
     ids: torch.Tensor     # (M,) sphere ids, by cell, then descending far key
     offs: torch.Tensor    # (ncells,) int64 CSR starts
@@ -76,6 +91,15 @@ class LightBins(NamedTuple):
     org: torch.Tensor     # (2,) lateral origin (umin, vmin)
     inv_cell: torch.Tensor  # () cells per unit length
     grid: int
+    keys: Optional[torch.Tensor] = None   # (M,) the spheres' far keys
+    # the cylinders' and rings' cells, from their bounding spheres; None
+    # when not asked for (the megakernel reads the spheres' only)
+    cyl: Optional[LightKind] = None
+    ring: Optional[LightKind] = None
+
+    @property
+    def sph(self) -> LightKind:
+        return LightKind(self.ids, self.keys, self.offs, self.count)
 
 
 def _expand_pairs(x0, y0, span_w, span_h, nx: int):
@@ -352,12 +376,14 @@ def _light_spans(centers, radii, e1, e2, umin, vmin, inv_cell, grid: int):
     return x0, y0, torch.where(live, x1 - x0 + 1, 0), torch.where(live, y1 - y0 + 1, 0)
 
 
-def build_light_bins(scene, light_dir, grid: int = 32) -> LightBins:
+def build_light_bins(scene, light_dir, grid: int = 32,
+                     other_kinds: bool = False) -> LightBins:
     """Light-grid cells -> sphere ids sorted by descending far key c.L + r.
 
     The grid is framed over every kind's bounding spheres (cylinder
     midpoints with half-length + radius, rings with their outer radius), as
-    in the JAX build (accel.py:533-539)."""
+    in the JAX build (accel.py:533-539).  With ``other_kinds`` the cylinders
+    and rings are binned too, by those bounding spheres (accel.py:544-560)."""
     centers, radii = scene.sph_center, scene.sph_radius
     np_dtype = torch.empty((), dtype=centers.dtype).numpy().dtype
     L = torch.as_tensor(np.asarray(light_dir, np_dtype), device=centers.device)
@@ -368,13 +394,22 @@ def build_light_bins(scene, light_dir, grid: int = 32) -> LightBins:
         torch.cat([centers, cmid, scene.ring_center]),
         torch.cat([radii, cr, scene.ring_rout]), L)
     inv_cell = grid / extent
-    x0, y0, sw, sh = _light_spans(centers, radii, e1, e2, umin, vmin,
-                                  inv_cell, grid)
-    cell, item = _expand_pairs(x0, y0, sw, sh, grid)
-    key = (centers @ L) + radii
-    _, ids, _, count, offs = _csr_sort(cell, item, -key[item], grid * grid)
-    return LightBins(ids, offs, count, L, e1, e2, torch.stack([umin, vmin]),
-                     inv_cell, grid)
+
+    def kind(c, r) -> LightKind:
+        x0, y0, sw, sh = _light_spans(c, r, e1, e2, umin, vmin, inv_cell, grid)
+        cell, item = _expand_pairs(x0, y0, sw, sh, grid)
+        key = (c @ L) + r
+        _, ids, nkey, count, offs = _csr_sort(cell, item, -key[item], grid * grid)
+        return LightKind(ids, -nkey, offs, count)
+
+    sph = kind(centers, radii)
+    cyl = ring = None
+    if other_kinds:
+        cyl = kind(cmid, cr)
+        ring = kind(scene.ring_center, scene.ring_rout)
+    return LightBins(sph.ids, sph.offs, sph.count, L, e1, e2,
+                     torch.stack([umin, vmin]), inv_cell, grid, sph.keys,
+                     cyl, ring)
 
 
 def build_light_records(lb: LightBins, scene):

@@ -13,13 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel import ScreenBins
+from .accel import LightBins, LightKind, ScreenBins
 from .megakernel import OtherRecords
 from .scene import Scene
 
 __all__ = [
     "scene_from_numpy", "screen_bins_from_numpy", "light_records_from_numpy",
-    "extra_lights_from_numpy", "other_records_from_numpy",
+    "light_bins_from_numpy", "extra_lights_from_numpy",
+    "other_records_from_numpy",
 ]
 
 
@@ -65,16 +66,73 @@ def other_records_from_numpy(other_data, other_count, occ_recs=None,
 
 
 def screen_bins_from_numpy(sph_chunks, sph_zmin, tiles_x: int, tiles_y: int,
-                           tile_px: int = 16, device="cpu") -> ScreenBins:
-    """JAX ``ScreenBins.sph_chunks`` / ``sph_zmin`` -> port ``ScreenBins``."""
+                           tile_px: int = 16, device="cpu", cyl=None,
+                           ring=None, ncyl: int = 0) -> ScreenBins:
+    """JAX ``ScreenBins`` -> port ``ScreenBins``: ``sph_chunks`` and
+    ``sph_zmin``, and, when given, the ``cyl`` and ``ring`` ``KindBins``
+    (-1 padded per-tile lists with their counts), which become the port's
+    per-tile CSR list: a tile's cylinders in slot order, then its rings with
+    ids moved up by ``ncyl``, the scene's padded cylinder count."""
     chunks = np.asarray(sph_chunks)
     if tile_px != 16 or chunks.shape[-1] != 128:
         raise ValueError("the port's kernel takes 16 px tiles and 128-wide chunks")
-    return ScreenBins(
-        torch.as_tensor(chunks.astype(np.int64), device=device),
-        torch.as_tensor(np.array(sph_zmin, np.float32), device=device),
-        tiles_x, tiles_y, tile_px,
-    )
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+    oth = (None, None, None, 0)
+    if cyl is not None or ring is not None:
+        nb = tiles_x * tiles_y
+        ids, tile, count, k_other = [], [], np.zeros(nb, np.int64), 0
+        for kind, base in ((cyl, 0), (ring, ncyl)):
+            if kind is None:
+                continue
+            cand = np.asarray(kind.cand).astype(np.int64)
+            cnt = np.asarray(kind.count).astype(np.int64)
+            live = np.arange(cand.shape[1])[None, :] < cnt[:, None]
+            ids.append(cand[live] + base)
+            tile.append(np.nonzero(live)[0])
+            count += cnt
+            k_other += cand.shape[1]
+        order = np.argsort(np.concatenate(tile), kind="stable")
+        oth = (t(np.concatenate(ids)[order], torch.int64),
+               t(np.cumsum(count) - count, torch.int64),
+               t(count, torch.int64), k_other)
+    return ScreenBins(t(chunks, torch.int64), t(sph_zmin, torch.float32),
+                      tiles_x, tiles_y, tile_px, *oth)
+
+
+def light_bins_from_numpy(lb, device="cpu") -> LightBins:
+    """JAX ``LightBins`` (its ``sph``, ``cyl`` and ``ring`` ``LightKind``
+    cells) -> port ``LightBins``.  The JAX cells are dense (ncells, K) rows
+    in ascending key order; the port's are compact CSR in descending order,
+    so each cell's live entries are reversed.  A kind the JAX build left out
+    (no live primitive) becomes empty cells."""
+    ncells = lb.grid * lb.grid
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+    def kind(k) -> LightKind:
+        if k is None:
+            z = np.zeros(ncells, np.int64)
+            return LightKind(t(z[:0], torch.int64), t(z[:0], torch.float32),
+                             t(z, torch.int64), t(z, torch.int64))
+        cand = np.asarray(k.cand)[:, ::-1]
+        count = np.asarray(k.count).astype(np.int64)
+        # the live slots of a reversed row are its last count[i]
+        live = np.arange(cand.shape[1])[None, :] >= cand.shape[1] - count[:, None]
+        return LightKind(
+            t(cand[live], torch.int64),
+            t(np.asarray(k.keys)[:, ::-1][live], torch.float32),
+            t(np.cumsum(count) - count, torch.int64), t(count, torch.int64))
+
+    sph = kind(lb.sph)
+    return LightBins(
+        sph.ids, sph.offs, sph.count, t(lb.L, torch.float32),
+        t(lb.e1, torch.float32), t(lb.e2, torch.float32),
+        t(lb.org, torch.float32), t(lb.inv_cell, torch.float32), lb.grid,
+        sph.keys, kind(lb.cyl), kind(lb.ring))
 
 
 def light_records_from_numpy(ldata, offs, count, lkmax, device="cpu"):

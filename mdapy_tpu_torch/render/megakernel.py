@@ -51,8 +51,8 @@ import torch
 __all__ = [
     "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
     "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
-    "plain_work", "render_image_mega", "stack_lights", "launches",
-    "reset_launches",
+    "plain_work", "count_work", "render_image_mega", "stack_lights",
+    "launches", "reset_launches",
 ]
 
 BIG = 1e18
@@ -421,6 +421,42 @@ def _closest_hit_other(other, tiles, o, d, bt, eps: float, perspective: bool):
     return bt, widx
 
 
+def _cylring_occludes(oc, axis, rr, typ, al, dda, dp, a2, inv_a2, light,
+                      eps: float):
+    """True where the ray from a point along the unit direction ``light``
+    hits a cylinder body (typ 1) or ring disc (typ 2) at t > eps.  ``oc`` is
+    the point minus the record's position, ``axis`` its unit axis, ``rr`` its
+    radius, ``al`` the cylinder length; ``dda`` = axis.light, ``dp`` = light
+    minus its axis part, ``a2`` = |dp|^2 and ``inv_a2`` = 1 / a2 (1 where a2
+    <= 1e-12) are the record's ray-independent terms.  Vectors are 3-tuples;
+    everything broadcasts together."""
+    ocx, ocy, ocz = oc
+    ax_, ay_, az_ = axis
+    lx, ly, lz = light
+    oca = ocx * ax_ + ocy * ay_ + ocz * az_
+    opx = ocx - oca * ax_
+    opy = ocy - oca * ay_
+    opz = ocz - oca * az_
+    bq = opx * dp[0] + opy * dp[1] + opz * dp[2]
+    cq = opx * opx + opy * opy + opz * opz - rr * rr
+    disc = bq * bq - a2 * cq
+    live_c = (typ == 1.0) & (disc >= 0.0) & (a2 > 1e-12)
+    sq = torch.sqrt(torch.where(live_c, disc, 0.0))
+    t1 = (-bq - sq) * inv_a2
+    t2 = (-bq + sq) * inv_a2
+    s1_ = oca + t1 * dda
+    s2_ = oca + t2 * dda
+    occ_c = live_c & (((t1 > eps) & (s1_ >= 0.0) & (s1_ <= al))
+                      | ((t2 > eps) & (s2_ >= 0.0) & (s2_ <= al)))
+    ring = (typ == 2.0) & (dda.abs() > 1e-12)
+    tr0 = -oca / torch.where(ring, dda, 1.0)
+    rx = ocx + tr0 * lx
+    ry = ocy + tr0 * ly
+    rz = ocz + tr0 * lz
+    occ_r = ring & (tr0 > eps) & (rx * rx + ry * ry + rz * rz <= rr * rr)
+    return occ_c | occ_r
+
+
 def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
     """Occluder-table test toward light row ``lp`` (``megakernel.py:1153-1295``):
     True where a cylinder or ring of ``occ`` (nocc, 16) blocks a hit point
@@ -493,50 +529,33 @@ def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
             i = oo[svoff[rt[ray]] + local]
             _count("occluder", ray.shape[0])
             tr_, tl_ = rt[ray], rl[ray]
-            ocx = hx[tr_, tl_] - px[i]
-            ocy = hy[tr_, tl_] - py[i]
-            ocz = hz[tr_, tl_] - pz[i]
-            ax_, ay_, az_ = axx[i], axy[i], axz[i]
-            oca = ocx * ax_ + ocy * ay_ + ocz * az_
-            opx = ocx - oca * ax_
-            opy = ocy - oca * ay_
-            opz = ocz - oca * az_
-            rr = rad[i]
-            bq = opx * dpx[i] + opy * dpy[i] + opz * dpz[i]
-            cq = opx * opx + opy * opy + opz * opz - rr * rr
-            a2i = a2[i]
-            disc = bq * bq - a2i * cq
-            live_c = (typ[i] == 1.0) & (disc >= 0.0) & (a2i > 1e-12)
-            sq = torch.sqrt(torch.where(live_c, disc, 0.0))
-            t1 = (-bq - sq) * inv_a2[i]
-            t2 = (-bq + sq) * inv_a2[i]
-            ddai, al = dda[i], alen[i]
-            s1_ = oca + t1 * ddai
-            s2_ = oca + t2 * ddai
-            occ_c = live_c & (((t1 > eps) & (s1_ >= 0.0) & (s1_ <= al))
-                              | ((t2 > eps) & (s2_ >= 0.0) & (s2_ <= al)))
-            ring = (typ[i] == 2.0) & (ddai.abs() > 1e-12)
-            tr0 = -oca / torch.where(ring, ddai, 1.0)
-            rx = ocx + tr0 * lx
-            ry = ocy + tr0 * ly
-            rz = ocz + tr0 * lz
-            occ_r = ring & (tr0 > eps) & (rx * rx + ry * ry + rz * rz <= rr * rr)
-            hit = ray[occ_c | occ_r]
+            hit_ = _cylring_occludes(
+                (hx[tr_, tl_] - px[i], hy[tr_, tl_] - py[i], hz[tr_, tl_] - pz[i]),
+                (axx[i], axy[i], axz[i]), rad[i], typ[i], alen[i], dda[i],
+                (dpx[i], dpy[i], dpz[i]), a2[i], inv_a2[i], (lx, ly, lz), eps)
+            hit = ray[hit_]
             blocked[rt[hit], rl[hit]] = True
             s0 = s1
     return blocked
 
 
-def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
+def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float,
+                    walked=None):
     """1.0 where some record of the ray's cell occludes it, else 0.0.
 
     Walks each ray's descending-key records in steps of _SHADOW_STEP; a ray
-    retires at its first occluder or once key <= tau + eps."""
+    retires at its first occluder or once key <= tau + eps.  ``lkmax`` (each
+    cell's largest key) spares the walk of a cell that cannot occlude; None
+    walks every non-empty cell, to the same result.  ``walked`` (int64, one
+    per ray), when given, gains the number of records each ray's walk read."""
     blocked = torch.zeros_like(tau)
     tau_eps = tau + eps
     cnt = lcnt[cell].to(torch.int64)
     off = loffs[cell].to(torch.int64)
-    active = torch.nonzero((cnt > 0) & (lkmax[cell] > tau_eps)).flatten()
+    live = cnt > 0
+    if lkmax is not None:
+        live = live & (lkmax[cell] > tau_eps)
+    active = torch.nonzero(live).flatten()
     k0 = 0
     step = torch.arange(_SHADOW_STEP, device=tau.device)
     while active.numel():
@@ -552,9 +571,12 @@ def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float):
         s2 = sr * sr - (du * du + dv * dv)
         q = tau_eps[active, None] - rec[..., 2]
         occ = (s2 > 0.0) & (sr > 0.0) & ((q < 0.0) | (s2 > q * q)) & ~stop
-        if _work is not None:
+        if _work is not None or walked is not None:
             # records a walk reads: up to its first occluder or its stop
-            _count("record", (~stop & (torch.cumsum(occ, 1) - occ.int() == 0)).sum())
+            read = (~stop & (torch.cumsum(occ, 1) - occ.int() == 0)).sum(dim=1)
+            _count("record", read.sum())
+            if walked is not None:
+                walked[active] += read
         hit = occ.any(dim=1)
         blocked[active[hit]] = 1.0
         active = active[~hit & ~stop[:, -1]]
@@ -846,20 +868,25 @@ def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
     return out
 
 
-def plain_work(*args, **kwargs) -> dict:
-    """Run ``mega_render_plain`` and return the tests it did, by kind:
-    "sphere" (ray x candidate in the chunks the early exit left), "cylring"
-    (ray x tile cyl/ring record), "record" (shadow records the cell walks
-    read up to their first occluder or stop), "cull" (occluder-table entries
-    culled per tile and sample group) and "occluder" (ray x entry that
-    passed the cull)."""
+def count_work(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)``, a plain version built on this module's
+    passes, and return the tests it did, by kind: "sphere" (ray x candidate
+    in the chunks the early exit left), "cylring" (ray x tile cyl/ring
+    record), "record" (shadow records the cell walks read up to their first
+    occluder or stop), "cull" (occluder-table entries culled per tile and
+    sample group) and "occluder" (ray x entry that passed the cull)."""
     global _work
     _work = {}
     try:
-        mega_render_plain(*args, **kwargs)
+        fn(*args, **kwargs)
         return _work
     finally:
         _work = None
+
+
+def plain_work(*args, **kwargs) -> dict:
+    """The tests ``mega_render_plain`` does, by kind (``count_work``)."""
+    return count_work(mega_render_plain, *args, **kwargs)
 
 
 def mega_render(chunk_data, *args, **kwargs) -> torch.Tensor:

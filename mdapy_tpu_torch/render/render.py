@@ -1,13 +1,22 @@
 """TachyonRender — user-facing renderer front end on PyTorch.
 
 Port of ``mdapy_tpu/render/render.py`` (``TachyonRender`` :75, ``render``
-:164, ``render_system`` :774, ``_default_colors`` :54) for the opaque
-one-shot megakernel path: spheres, bond and box-edge cylinders with their
-ring caps, one directional light with shadows, AA, and the fast ambient
-occlusion of scenes above ``AO_EXACT_MAX_SPHERES`` padded spheres.
-``backend="cuda"`` runs the acceleration builds as torch ops on the card and
-the frame through the hand CUDA kernel; ``backend="cpu"`` runs the same
-builds on the CPU and the kernel's plain torch version, in float32.
+:164, ``render_system`` :774, ``_default_colors`` :54) for opaque scenes:
+spheres, bond and box-edge cylinders with their ring caps, one directional
+light with shadows, AA, and the fast ambient occlusion of scenes above
+``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
+acceleration builds as torch ops on the card and the frame through the hand
+CUDA kernels; ``backend="cpu"`` runs the same builds on the CPU and the
+kernels' plain torch versions, in float32.
+
+A frame takes one of three routes, as in the JAX renderer (render.py:391-750):
+the one-shot megakernel (``megakernel.render_image_mega``); past its limits
+for cylinders and rings — more than ``OTHER_TILE_MAX`` candidates in a tile,
+or more than ``OTHER_SHADOW_MAX`` live ones with shadows — the tiled tracer
+``tracer_tiled.render_image_pallas`` in bands of tile rows (chunked sphere
+closest-hit kernel, dense cylinder/ring merge, light-grid shadow pass over
+all three kinds); and for a scene with cylinders or rings but no live sphere
+``tracer_tiled.render_image_tiled``.
 
 Fast AO (``render.py:551-637``): 2*K2 directional sky lights, K2 =
 ao_samples // 2 Fibonacci hemisphere directions and their opposites, each
@@ -16,14 +25,13 @@ the primary light in the same launch, so one closest-hit traversal serves
 them all.  Their structures are world-space and keyed by the scene alone,
 so a camera move reuses them.
 
-What the slice does not cover raises ``NotImplementedError`` naming the
+What the port does not cover raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: AO on scenes of at most
-``AO_EXACT_MAX_SPHERES`` padded spheres (the exact tracer, A6); cylinders
-and rings past the JAX package's megakernel limits — more than
-``OTHER_TILE_MAX`` candidates in a tile, or more than ``OTHER_SHADOW_MAX``
-live ones with shadows or AO — which take the exact tracer (A6) with AO and
-``render_image_pallas`` (A7/B2) without; alpha < 1 on atoms, bonds or the
-box (B1e); and candidate records past the memory budget (B1f).
+``AO_EXACT_MAX_SPHERES`` padded spheres, and AO on a scene that leaves the
+megakernel (past its cylinder and ring limits, or without a live sphere),
+both of which take the exact AO tracer in the JAX renderer (A6); alpha < 1
+on atoms, bonds or the box (B1e); and candidate records past the memory
+budget (B1f).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from .megakernel import (
     stack_lights,
 )
 from .scene import build_scene
+from .tracer_tiled import render_image_pallas_banded, render_image_tiled
 
 __all__ = ["TachyonRender", "CameraParams", "build_ao_lights", "save_image"]
 
@@ -200,6 +209,7 @@ class TachyonRender:
         self._accel_key = None
         self._accel = None
         self._other = None
+        self._route_name = None
         self._ao_key = None
         self._ao = None
 
@@ -278,12 +288,17 @@ class TachyonRender:
             self._ao_key = scene_key
         return self._ao
 
-    def _check_other(self, bins, n_other: int, n_sph: int) -> None:
-        """Raise where the JAX renderer leaves the megakernel for a scene
-        with cylinders or rings (render.py:391-445)."""
+    def _route(self, bins, n_other: int, n_sph: int) -> str:
+        """The renderer a frame takes, as the JAX renderer picks it
+        (render.py:391-445, 690-750): "mega" (the one-shot megakernel),
+        "pallas" (``render_image_pallas``, past the megakernel's limits for
+        cylinders and rings) or "tiled" (``render_image_tiled``, a scene of
+        cylinders and rings without a live sphere).  With AO the last two
+        are the exact AO tracer in the JAX renderer, which is not ported
+        (ROADMAP A6): that raises."""
         cfg = self._cfg
         if not n_other:
-            return
+            return "mega"
         why = None
         if not n_sph:
             why = "a scene of cylinders and rings without a live sphere"
@@ -294,27 +309,28 @@ class TachyonRender:
             why = (f"{n_other} live cylinders + rings with shadows or AO (at "
                    f"most {OTHER_SHADOW_MAX})")
         if why is None:
-            return
+            return "mega"
         if cfg.ao_enabled:
             raise NotImplementedError(
                 f"{why} takes, in the JAX renderer, the exact AO tracer, "
-                "which is not ported yet (ROADMAP A6)")
-        path = ("render_image_tiled, which is not ported yet (ROADMAP A7)"
-                if not n_sph else "render_image_pallas with kernel B2, which "
-                "are not ported yet (ROADMAP A7/B2)")
-        raise NotImplementedError(f"{why} takes, in the JAX renderer, {path}")
+                "which is not ported yet (ROADMAP A6); pass ao=False")
+        return "pallas" if n_sph else "tiled"
 
     def _accel_for(self, scene_key, scene_entry, camera, width, height, radii):
         """Per-view structures, rebuilt only when the scene or view changes:
-        ((frame, bins, chunk_data, lights, params), other)."""
+        (route, accel, other).  For the megakernel ``accel`` is (frame, bins,
+        chunk_data, lights, params) and ``other`` its cylinders and rings
+        with their occluder tables; for the tiled tracer ``accel`` is
+        (frame, bins, chunk_data, lb), ``lb`` with the light cells of every
+        kind, and ``other`` the tiles' cylinder and ring records."""
         key = (scene_key, repr((camera.__dict__, width, height)))
         if key == self._accel_key:
-            return self._accel, self._other
+            return self._route_name, self._accel, self._other
         scene, lo, hi, table, n_other, n_sph = scene_entry
         cfg = self._cfg
         frame = camera_frame(camera, width, height)
         bins = build_screen_bins(scene, frame, width, height, TILE_PX)
-        self._check_other(bins, n_other, n_sph)
+        route = self._route(bins, n_other, n_sph)
         nb, nchunks, ch = bins.sph_chunks.shape
         rec_bytes = nb * nchunks * ch * 32
         if rec_bytes > RECORD_BUDGET_BYTES:
@@ -323,9 +339,20 @@ class TachyonRender:
                 f"the {RECORD_BUDGET_BYTES}-byte budget; the banded render "
                 "is not ported yet (ROADMAP B1f)"
             )
-        lb = build_light_bins(scene, frame["light_dir"], grid=LIGHT_GRID)
-        chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
-                                       scene.sph_radius, scene.sph_color)
+        lb = build_light_bins(scene, frame["light_dir"], grid=LIGHT_GRID,
+                              other_kinds=route != "mega")
+        chunk_data = (gather_chunk_data(bins.sph_chunks, scene.sph_center,
+                                        scene.sph_radius, scene.sph_color)
+                      if n_sph or route == "mega" else None)
+        if route != "mega":
+            # a scene on these routes has cylinders or rings, so its shadows
+            # take the light cells of three kinds: the light-grid kernel
+            # (``light_records``) knows spheres only, and a sphere-only scene
+            # always takes the megakernel (render.py:702-707)
+            other = OtherRecords(*gather_other_records(bins, table))
+            self._accel = (frame, bins, chunk_data, lb)
+            self._other, self._route_name, self._accel_key = other, route, key
+            return route, self._accel, other
         params = build_mega_params(frame, lb, lo, hi, cfg)
         extra = (self._ao_for(scene_key, scene, radii, table)
                  if cfg.ao_enabled else None)
@@ -348,9 +375,26 @@ class TachyonRender:
                                   + [e[5] for e in extra or ()])
             other = OtherRecords(*gather_other_records(bins, table), occ)
         self._accel = (frame, bins, chunk_data, lights, params)
-        self._other = other
-        self._accel_key = key
-        return self._accel, other
+        self._other, self._route_name, self._accel_key = other, route, key
+        return route, self._accel, other
+
+    def _render_tiled(self, route: str, accel, other, width: int, height: int):
+        """The frame through the tiled tracer -> (height, width, 3) f32.
+
+        "pallas": in the JAX renderer's bands of tile rows
+        (``render_image_pallas_banded``); "tiled": ``render_image_tiled``."""
+        frame, bins, chunk_data, lb = accel
+        scene, cfg = self._scene[0], self._cfg
+        cam = (frame["origin"], frame["lowleft"], frame["iplaneright"],
+               frame["iplaneup"], frame["view"], frame["light_dir"])
+        if route == "tiled":
+            return render_image_tiled(
+                scene, bins, lb, *cam, cfg, width, height,
+                bool(frame["perspective"]), self._seed, bins.tile_px,
+                bins.tiles_x, bins.tiles_y, chunk_data=chunk_data, other=other)
+        return render_image_pallas_banded(
+            scene, bins, chunk_data, lb, frame, cfg, width, height,
+            self._seed, other=other)
 
     def render(
         self,
@@ -376,7 +420,9 @@ class TachyonRender:
 
         ``device_output=True`` returns the rounded (H, W, 3) uint8 frame as
         a tensor on the render device, with no host round trip — the serving
-        path when the consumer lives on the device."""
+        path when the consumer lives on the device.  It does so on every
+        route; the JAX renderer offers it on the megakernel route only
+        (render.py:687-689) and returns the host image on the others."""
         positions = np.ascontiguousarray(positions, dtype=np.float64)
         colors = np.ascontiguousarray(colors, dtype=np.float32)
         radii = np.ascontiguousarray(radii, dtype=np.float32)
@@ -412,16 +458,25 @@ class TachyonRender:
                 f"spheres (at most {AO_EXACT_MAX_SPHERES}) takes the exact AO "
                 "tracer, which is not ported yet (ROADMAP A6); pass ao=False"
             )
-        (frame, bins, chunk_data, lights, params), other = self._accel_for(
+        route, accel, other = self._accel_for(
             scene_key, entry, camera, int(width), int(height), radii)
-        S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
-        img_f = render_image_mega(
-            chunk_data, bins.sph_zmin, lights, params, self._seed,
-            S=S, width=int(width), height=int(height),
-            tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
-            eps=cfg.eps, perspective=bool(frame["perspective"]),
-            shadows=lights is not None, quantized=device_output, other=other,
-        )
+        if route == "mega":
+            frame, bins, chunk_data, lights, params = accel
+            S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
+            img_f = render_image_mega(
+                chunk_data, bins.sph_zmin, lights, params, self._seed,
+                S=S, width=int(width), height=int(height),
+                tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
+                eps=cfg.eps, perspective=bool(frame["perspective"]),
+                shadows=lights is not None, quantized=device_output,
+                other=other,
+            )
+        else:
+            img_f = self._render_tiled(route, accel, other, int(width),
+                                       int(height))
+            if device_output:
+                img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
+                                    255.0).to(torch.uint8)
         if device_output:
             return img_f
 

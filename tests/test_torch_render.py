@@ -172,23 +172,38 @@ def test_unported_options_raise(monkeypatch):
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     edges = np.stack([pos[:4], pos[4:8]], axis=1)       # 4 cylinders, 8 rings
     kw = dict(width=32, height=32)
-    # past the JAX package's cyl/ring bounds: render_image_pallas (A7/B2)
-    # when opaque, the exact tracer (A6) with AO
+    # past the JAX package's cyl/ring bounds: render_image_pallas when
+    # opaque, the exact tracer (A6) with AO
+    want = ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    assert ren._route_name == "mega"
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 8)
-    with pytest.raises(NotImplementedError, match="A7/B2"):
-        ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    got = ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    assert ren._route_name == "pallas" and got.shape == (32, 32, 4)
     with pytest.raises(NotImplementedError, match="A6"):
         ao.render(pos, colors, radii, box_edges=edges, **kw)
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 512)
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 11)
-    with pytest.raises(NotImplementedError, match="A7/B2"):
-        ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    got = ren.render(pos, colors, radii, bond_edges=edges, **kw)
+    assert ren._route_name == "pallas" and got[..., :3].std() > 1
+    # AA is on, and the two routes jitter differently: the frames are alike,
+    # not equal
+    assert np.abs(got.astype(np.int32) - want).mean() < 2.0
     with pytest.raises(NotImplementedError, match="A6"):
         ao.render(pos, colors, radii, bond_edges=edges, **kw)
+    # cylinders without a live sphere: render_image_tiled, A6 with AO
+    none = (np.zeros((0, 3)), np.zeros((0, 4), np.float32), np.zeros(0, np.float32))
+    cam = mdapy_tpu_torch.preset_camera("perspective", pos, max_radius=1.28)
+    got = ren.render(*none, bond_edges=edges, camera=cam, **kw)
+    assert ren._route_name == "tiled" and got[..., :3].std() > 1
+    with pytest.raises(NotImplementedError, match="A6"):
+        ao.render(*none, bond_edges=edges, camera=cam, **kw)
     # the global bound holds only where shadows or AO test occluders
     flat = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False, shadows=False)
     assert flat.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 12)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     assert ren.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
     # a transparent box or bond is B1e, like a transparent atom
     with pytest.raises(NotImplementedError, match="B1e"):
@@ -253,6 +268,12 @@ def test_port_imports_no_jax():
         "width=128, height=96)\n"
         "assert img.shape == (96, 128, 4) and img.std() > 1\n"
         "assert len(i) == 192 and r._other.orec.shape[0] > 0\n"
+        "m.render.render.OTHER_SHADOW_MAX = 100\n"
+        "r = m.TachyonRender(backend='cpu', ao=False)\n"
+        "heavy = r.render_system(Stand(), draw_bond=True, radii=np.full(32, .6), "
+        "width=128, height=96)\n"
+        "assert r._route_name == 'pallas' and heavy.shape == (96, 128, 4)\n"
+        "assert np.abs(heavy.astype(int) - img).mean() < 2 and heavy.std() > 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
