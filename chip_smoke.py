@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py            # every phase, ~80 s on an H100
+    python3 chip_smoke.py            # every phase
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -34,7 +34,15 @@ Phases (any failure exits non-zero before the last line is printed):
    three kinds), against the plain route and against ``backend="cpu"``;
    (l) its bonds and cell without atoms (``render_image_tiled``) against
    ``backend="cpu"`` (at most 0.1 % of the pixels off by more than one
-   level between the card's and the CPU's torch arithmetic).
+   level between the card's and the CPU's torch arithmetic).  Transparency
+   peeling, kernel against plain, max |diff| at most 1e-4 (0 expected): the
+   2,048-atom scene with half its atoms at alpha 0.3-0.7 (seed 11),
+   shadows, S = 3: (m) perspective, n_peel 4; (n) orthographic, n_peel 4;
+   (o) perspective, peel1; (p) perspective, n_peel 4, ao_samples = 4 (5
+   lights); (r) the opaque scene at n_peel 4 against the opaque kernel;
+   (s) S = 21, whose peel state takes a device buffer, not shared memory;
+   and (q) the 54-atom BCC block with its bonds at alpha 0.5 and its cell
+   at 0.6, as ``TachyonRender.render`` hands them to the kernel.
 3. The headline frame at full size, one light: the 1,000,188-atom FCC block
    (a = 3.615, r = 1.28), the "perspective" preset camera, 1920x1080, AA 12
    (13 samples) with primary-light shadows, through
@@ -86,10 +94,27 @@ Phases (any failure exits non-zero before the last line is printed):
    picture by different arithmetic: at most 4 pixels in 7,680 (the CPU
    tests' bound) may differ by more than one level.
 
-Phase 8 follows phase 3 on its scene, then 5, 7, 4 and 6.  The headline
-frame and configs 2 and 3 also print the bound of the whole frame: the
-tests the plain version counts there (those the early exits leave) at the
-H100's fp32 peak, against the bytes they must move at its HBM rate.
+T1. The headline scene translucent, the view of a precipitate inside its
+   matrix: phase 3's frame with every atom farther than 0.3 x the block's
+   edge from its centre at alpha 0.3 (max_trans 4): first and 5 warm
+   frames, peak memory, the kernel's full-frame time against phase 3's
+   opaque one and its split, the tiles by the number of peels they ran and
+   the records walked per lit ray (the plain version's counts), the kernel
+   against its plain version on the whole frame and on tile rows 33-34,
+   both timed, and the bound.
+T2. BASELINE config 3 translucent: phase 4's polycrystal with grain 0
+   opaque and the other 14 grains at alpha 0.2: warm frame beside phase
+   4's, the kernel split (closest hit, primary walks, AO walks), the band.
+T3. BASELINE config 2 translucent: phase 5's BCC Fe with its atoms at
+   alpha 0.4 and its bonds and cell opaque, through ``render_system`` and
+   ``render``: the cylinder/ring kernel with peeling at full width; warm
+   frame beside phase 5's, the kernel split, the band.
+
+Phase 8 follows phase 3 on its scene, then T1, 5, T3, 7, 4, 6 and T2.  The
+headline frame, configs 2 and 3 and T1 also print the bound of the whole
+frame, and T1-T3 that of their band: the tests the plain version counts
+there (those the early exits leave) at the H100's fp32 peak, against the
+bytes they must move at its HBM rate.
 
 The last three lines are the kernel table (JSON), the card's name and power
 limit as nvidia-smi reports them, and a JSON status line.
@@ -112,6 +137,7 @@ WARM_FRAMES = 5
 TOL_HIT = 1e-4        # max |diff| of the closest hit's t and record (0 expected)
 TOL_FILT = 1e-5       # share of rays whose shadow filter may differ (0 expected)
 TOL_LEVELS = 1e-3     # share of uint8 pixels off by > 1 level, card against CPU
+TOL_PEEL = 1e-4       # max |diff| of a peel case, kernel against plain (0 expected)
 
 
 def fail(msg: str) -> None:
@@ -150,7 +176,8 @@ def voronoi_polycrystal(box=230.0, grains=15, seed=1, a=3.615, min_dist=2.0):
     """Periodic Voronoi polycrystal of FCC grains: one random seed point and
     one random rotation per grain (drawn from ``seed`` in that order), each
     lattice point kept by the grain whose seed is nearest (periodic), then
-    one atom of each pair closer than ``min_dist`` removed."""
+    one atom of each pair closer than ``min_dist`` removed.  Returns the
+    positions and each atom's grain."""
     from scipy.spatial import cKDTree
 
     rng = np.random.default_rng(seed)
@@ -178,10 +205,11 @@ def voronoi_polycrystal(box=230.0, grains=15, seed=1, a=3.615, min_dist=2.0):
         p[p >= box] = 0.0
         parts.append(p[tree.query(p)[1] == i])
     pos = np.concatenate(parts)
+    grain = np.concatenate([np.full(len(q), i) for i, q in enumerate(parts)])
     pairs = cKDTree(pos, boxsize=box).query_pairs(min_dist, output_type="ndarray")
     keep = np.ones(len(pos), bool)
     keep[pairs.max(axis=1)] = False
-    return pos[keep]
+    return pos[keep], grain[keep]
 
 
 def bcc_positions(n_cells: int, a: float = 2.8665) -> np.ndarray:
@@ -246,19 +274,20 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 def bound(work: dict, nbytes: float):
     """Least time (ms) the card could take for the counted work, and what
     bounds it: operations over the fp32 peak against bytes over the HBM rate."""
-    ops = sum(OPS[k] * v for k, v in work.items())
+    ops = sum(OPS[k] * work.get(k, 0) for k in OPS)
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
 
 
-def band_bytes(work: dict, tiles: int, S: int, other=None, lights=None) -> float:
-    """Bytes a band's render must move, each input read once and the output
-    written once: the candidate chunks its walks reached, its cyl/ring
+def band_bytes(work: dict, band, other=None, lights=None) -> float:
+    """Bytes the render of the tiles ``band`` = (first, end) must move, each
+    input read once and the output written once: the candidate chunks its
+    walks reached (a tile's deepest walk over its peels), its cyl/ring
     records, the shadow records its walks read (at most the whole CSR), the
     occluder tables, and the (tiles, 768) f32 output."""
-    n = 4096 * work.get("sphere", 0) / (S * 256 * 128) + tiles * 3072
+    n = 4096 * work.get("chunk", 0) + (band[1] - band[0]) * 3072
     if other is not None:
-        n += 64 * work.get("cylring", 0) / (S * 256)
+        n += 64 * int(other.ocnt[band[0]:band[1]].sum())
         if other.occ is not None:
             n += other.occ.numel() * 4
     if lights is not None:
@@ -275,10 +304,11 @@ def light_grid(lights) -> str:
             f"non-empty cell")
 
 
-def frame_bound(what, work, kernel_ms, nb, S, other=None, lights=None):
+def frame_bound(what, work, kernel_ms, nb, other=None, lights=None):
     """Print the work the plain version counted on the whole frame and the
     bound it sets, beside the kernel's full-frame time."""
-    b_ms, b_by, ops = bound(work, band_bytes(work, nb, S, other=other, lights=lights))
+    b_ms, b_by, ops = bound(work, band_bytes(work, (0, nb), other=other,
+                                             lights=lights))
     print(f"  {what} full frame: work {work}, {ops:.4g} fp32 operations, bound "
           f"{b_ms:.4f} ms by {b_by}, kernel {kernel_ms:.3f} ms (roofline share "
           f"{b_ms / kernel_ms:.2%})")
@@ -489,6 +519,179 @@ def compare_levels(img_a, img_b, what: str, share: float) -> int:
     return n_bad
 
 
+def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
+                         grid=32):
+    """The megakernel's inputs for a sphere scene, built on ``dev`` as the
+    front end builds them: (frame, bins, chunk_data, lights, params)."""
+    from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render import render as trender
+    from mdapy_tpu_torch.render.accel import (
+        build_light_bins, build_light_records, build_screen_bins,
+    )
+    from mdapy_tpu_torch.render.camera import camera_frame
+    from mdapy_tpu_torch.render.gather import gather_chunk_data
+    from mdapy_tpu_torch.render.scene import build_scene
+
+    scene = build_scene(pos, colors, radii, device=dev)
+    frame = camera_frame(cam, width, height)
+    bins = build_screen_bins(scene, frame, width, height)
+    lb = build_light_bins(scene, frame["light_dir"], grid=grid)
+    chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
+                                   scene.sph_radius, scene.sph_color)
+    lo = (scene.sph_center - scene.sph_radius[:, None]).min(0).values
+    hi = (scene.sph_center + scene.sph_radius[:, None]).max(0).values
+    params = megakernel.build_mega_params(frame, lb, lo, hi, cfg)
+    extra = (trender.build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
+                                     float(radii.max()), grid=grid)
+             if cfg.ao_enabled else None)
+    lights = None
+    if cfg.shadows_enabled or extra:
+        primary = (build_light_records(lb, scene) if cfg.shadows_enabled
+                   else (None, None, None, None))
+        lights = megakernel.stack_lights(params, *primary, extra_lights=extra,
+                                         grid_n=grid, device=dev)
+    return frame, bins, chunk_data, lights, params
+
+
+def translucent(colors, seed: int, share: float = 0.5, lo: float = 0.3,
+                hi: float = 0.7):
+    """``colors`` with alpha drawn in [lo, hi) for a ``share`` of the atoms
+    (from ``seed``), the rest left opaque."""
+    rng = np.random.default_rng(seed)
+    out = colors.copy()
+    pick = rng.uniform(size=len(out)) < share
+    out[pick, 3] = rng.uniform(lo, hi, int(pick.sum()))
+    return out
+
+
+def compare_peel(out_k, out_p, what: str) -> float:
+    """A peel case, kernel against plain: max |diff| at most TOL_PEEL."""
+    err = float((out_k - out_p).abs().max())
+    print(f"  {what}: max |diff| {err:.3e} (allowed {TOL_PEEL})")
+    if not bool(torch.isfinite(out_k).all()) or not err <= TOL_PEEL:
+        fail(f"{what}: the peel kernel disagrees with its plain version")
+    if float(out_p.std()) < 0.02:
+        fail(f"{what}: the plain image is flat")
+    return err
+
+
+def drive(megakernel, frame_fn, what: str):
+    """The main path's run: launch counts and the peak reset, a first frame
+    and WARM_FRAMES warm ones, each of which must launch the kernel once.
+    Returns (last image, first s, warm s a frame, kernel launches, the
+    first frame's launches, peak allocated bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    megakernel.reset_launches()
+    img, t_first = sync_time(frame_fn)
+    first = megakernel.launches
+    img, t_warm = sync_time(lambda: [frame_fn() for _ in range(WARM_FRAMES)][-1])
+    if first != 1 or megakernel.launches != 1 + WARM_FRAMES:
+        fail(f"{what}: {first} kernel launches in the first frame, "
+             f"{megakernel.launches} in {1 + WARM_FRAMES} frames (one a frame "
+             "expected)")
+    return (img, t_first, t_warm / WARM_FRAMES, megakernel.launches, first,
+            torch.cuda.max_memory_allocated())
+
+
+def band_check(megakernel, args, kw, frame_bins, what, other=None, lights=None):
+    """Kernel against plain over the frame's 2 middle tile rows (33-34 at
+    1080p), both timed, and the band's bound from the plain version's
+    counts.  Returns {ms, plain_ms, bound_ms, bound_by, err}."""
+    ty0 = frame_bins.tiles_y // 2 - 1
+    band = (ty0 * frame_bins.tiles_x, (ty0 + 2) * frame_bins.tiles_x)
+    out_k = megakernel.mega_render_cuda(*args, tiles=band, **kw)
+    out_p = megakernel.mega_render_plain(*args, tiles=band, **kw)
+    err = compare(out_k, out_p, f"{what} band of {band[1] - band[0]} tiles")
+    ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
+    plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
+    work = megakernel.plain_work(*args, tiles=band, **kw)
+    b_ms, b_by, ops = bound(work, band_bytes(work, band, other=other, lights=lights))
+    print(f"  {what} band: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; work "
+          f"{work}, {ops:.4g} fp32 operations, bound {b_ms:.4f} ms by {b_by} "
+          f"(roofline share {b_ms / ms:.2%})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+
+
+def peel_cases(dev, card: str) -> list:
+    """Phase 2 (m)-(s): transparency peeling, kernel against its plain
+    version on the same CUDA tensors.  Returns the max |diff| of each."""
+    from mdapy_tpu_torch import TachyonRender, preset_camera
+    from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render import render as trender
+    from mdapy_tpu_torch.render.config import RenderConfig
+    from mdapy_tpu_torch.render.geometry import bond_edges, box_edges
+
+    errs = []
+    pos, colors, radii = fcc_block(8, seed=3)
+    glass = translucent(colors, 11)
+    for case, preset, aa, ao, n_peel, peel1, cols in (
+            ("m", "perspective", 2, 0, 4, False, glass),
+            ("n", "top", 2, 0, 4, False, glass),
+            ("o", "perspective", 2, 0, 1, True, glass),
+            ("p", "perspective", 2, 4, 4, False, glass),
+            ("r", "perspective", 2, 0, 4, False, colors),
+            ("s", "perspective", 20, 0, 4, False, glass)):
+        cam = preset_camera(preset, pos, max_radius=1.28)
+        cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_enabled=ao > 0,
+                           ao_samples=ao, shadows_enabled=True)
+        frame, bins, cd, lights, params = prepare_sphere_frame(
+            dev, pos, cols, radii, cam, 320, 240, cfg)
+        S = aa + 1
+        kw = dict(S=S, tiles_x=bins.tiles_x, grid_n=32, eps=cfg.eps,
+                  perspective=bool(frame["perspective"]), shadows=True)
+        args = (cd, bins.sph_zmin, lights, params, 0)
+        nl = lights.lparams.shape[0]
+        what = (f"[2{case}] {len(pos)} atoms 320x240 {preset} S={S} "
+                f"lights={nl} " + ("peel1" if peel1 else f"n_peel={n_peel}"))
+        megakernel.reset_launches()
+        out_k = megakernel.mega_render_cuda(*args, n_peel=n_peel, peel1=peel1, **kw)
+        state = 4 * (8 + (nl - 1) * 256 + 8 * S * 256)
+        if megakernel.launches != 1:
+            fail(f"{what}: {megakernel.launches} launches")
+        if case == "r":
+            # an opaque scene: the peel kernel against the opaque kernel
+            out_o = megakernel.mega_render_cuda(*args, **kw)
+            errs.append(compare_peel(out_k, out_o, what + ", opaque, against "
+                                     "the opaque kernel"))
+            continue
+        out_p = megakernel.mega_render_plain(*args, n_peel=n_peel, peel1=peel1, **kw)
+        torch.cuda.synchronize()
+        errs.append(compare_peel(out_k, out_p, what + (
+            f", peel state in a device buffer ({state} B > "
+            f"{megakernel.PEEL_SMEM_BYTES} B)" if state > megakernel.PEEL_SMEM_BYTES
+            else f", peel state {state} B of shared memory")))
+    # (q): bonds at alpha 0.5 and the cell at 0.6 on the 54-atom BCC block,
+    # as TachyonRender hands them to the kernel
+    small = bcc_system(3)
+    colors_b = trender._default_colors(small)
+    radii_b = np.full(small.N, 0.5, np.float32)
+    bonds_b, _ = bond_edges(small.get_positions(), small.box, small.bond,
+                            colors_b, radii_b, 0.2)
+    edges_c = box_edges(small.box)
+    cam = preset_camera("perspective", np.r_[small.get_positions(), edges_c[:, 0]],
+                        max_radius=0.5)
+    ren = TachyonRender(backend="cuda", ao=False, aa_samples=2)
+    megakernel.reset_launches()
+    ren.render(small.get_positions(), colors_b, radii_b, camera=cam,
+               bond_edges=bonds_b, bond_radius=0.2, bond_color=(0.8, 0.8, 0.8, 0.5),
+               box_edges=edges_c, box_edge_radius=0.1,
+               box_color=(1.0, 1.0, 1.0, 0.6), width=320, height=240)
+    (frame, bins, cd, lights, params), other = ren._accel, ren._other
+    if megakernel.launches != 1 or not ren._scene[6] or other.occ is None:
+        fail(f"[2q] the translucent bond frame took {megakernel.launches} "
+             f"launches, transparency {ren._scene[6]}")
+    kw = dict(S=3, tiles_x=bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, other=other, n_peel=4)
+    args = (cd, bins.sph_zmin, lights, params, 0)
+    out_k = megakernel.mega_render_cuda(*args, **kw)
+    out_p = megakernel.mega_render_plain(*args, **kw)
+    errs.append(compare_peel(out_k, out_p, f"[2q] {small.N} atoms + "
+                             f"{other.occ.shape[1]} cyl/rings (bonds alpha 0.5, "
+                             "cell 0.6) 320x240 perspective S=3 n_peel=4"))
+    print(f"  [2m-s] on {card}: peel cases max |diff| {max(errs):.3e}")
+    return errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -530,29 +733,6 @@ def main() -> None:
             if "Used" in line or "spill" in line:
                 print("    " + line.strip())
 
-    def prepare(pos, colors, radii, cam, width, height, cfg, grid=32):
-        scene = build_scene(pos, colors, radii, device=dev)
-        frame = camera_frame(cam, width, height)
-        bins = build_screen_bins(scene, frame, width, height)
-        lb = build_light_bins(scene, frame["light_dir"], grid=grid)
-        chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
-                                       scene.sph_radius, scene.sph_color)
-        lo = (scene.sph_center - scene.sph_radius[:, None]).min(0).values
-        hi = (scene.sph_center + scene.sph_radius[:, None]).max(0).values
-        params = megakernel.build_mega_params(frame, lb, lo, hi, cfg)
-        extra = (trender.build_ao_lights(scene, cfg.ao_samples,
-                                         cfg.ao_brightness, float(radii.max()),
-                                         grid=grid)
-                 if cfg.ao_enabled else None)
-        lights = None
-        if cfg.shadows_enabled or extra:
-            primary = (build_light_records(lb, scene) if cfg.shadows_enabled
-                       else (None, None, None, None))
-            lights = megakernel.stack_lights(params, *primary,
-                                             extra_lights=extra, grid_n=grid,
-                                             device=dev)
-        return frame, bins, chunk_data, lights, params
-
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
     errs = []
@@ -563,8 +743,8 @@ def main() -> None:
         cam = preset_camera(preset, pos, max_radius=1.28)
         cfg = RenderConfig(aa_samples=aa, aa_enabled=aa > 0, ao_enabled=ao > 0,
                            ao_samples=ao, shadows_enabled=shadows)
-        frame, bins, cd, lights, params = prepare(pos, colors, radii, cam, 320,
-                                                  240, cfg)
+        frame, bins, cd, lights, params = prepare_sphere_frame(
+            dev, pos, colors, radii, cam, 320, 240, cfg)
         nl = 1 if lights is None else lights.lparams.shape[0]
         if nl != (1 + 2 * (ao // 2) if ao else 1):
             fail(f"{preset} ao_samples={ao}: {nl} lights stacked")
@@ -726,6 +906,9 @@ def main() -> None:
         del ren_b
     trender.OTHER_SHADOW_MAX = shadow_max
 
+    # (m)-(s): transparency peeling
+    peel_errs = peel_cases(dev, card)
+
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
     pos, colors, radii = fcc_block(63)
@@ -789,20 +972,12 @@ def main() -> None:
     out_k = megakernel.mega_render_cuda(*args, **kw)
     out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
     errs.append(compare(out_k, out_p, f"[3] full frame (plain {t_plain:.2f} s)"))
-    frame_bound("headline", megakernel.plain_work(*args, **kw), kernel_ms, nb, S,
+    frame_bound("headline", megakernel.plain_work(*args, **kw), kernel_ms, nb,
                 lights=lights_main)
     del out_k, out_p
-    rows = 2
-    ty0 = frame_bins.tiles_y // 2 - rows // 2
-    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
-    band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
-    plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
-    work = megakernel.plain_work(*args, tiles=band, **kw)
-    bound_ms, bound_by, ops = bound(work, band_bytes(
-        work, band[1] - band[0], S, lights=lights_main))
-    print(f"  headline band of {band[1] - band[0]} tiles on {card}: kernel "
-          f"{band_ms:.3f} ms, plain {plain_ms:.3f} ms; work {work}, {ops:.4g} "
-          f"fp32 operations, bound {bound_ms:.4f} ms by {bound_by}")
+    b_head = band_check(megakernel, args, kw, frame_bins,
+                        f"[3] headline on {card}", lights=lights_main)
+    errs.append(b_head["err"])
     # ---- 8. the tiled tracer's kernels on the headline scene ------------------
     lrec3 = (lights_main.lrec, lights_main.loffs[0].contiguous(),
              lights_main.lcnt[0].contiguous())
@@ -920,6 +1095,65 @@ def main() -> None:
     del ren, args, chunk_data, lights_main, frame_bins, scene, bins, lb, cd, lrec
     torch.cuda.empty_cache()
 
+    # ---- T1. the headline scene translucent: a precipitate in its matrix ----
+    centre = 0.5 * (pos.min(0) + pos.max(0))
+    edge = float((pos.max(0) - pos.min(0)).max())
+    colors_t1 = colors.copy()
+    outer = np.linalg.norm(pos - centre, axis=1) > 0.3 * edge
+    colors_t1[outer, 3] = 0.3
+    ren = TachyonRender(backend="cuda", ao=False)
+
+    def t1_frame():
+        return ren.render(pos, colors_t1, radii, camera=cam, width=width,
+                          height=height, device_output=True)
+
+    img, t_first, t_warm, t1_launches, t1_per_frame, t1_peak = drive(
+        megakernel, t1_frame, "T1")
+    print(f"[T1] {card}: {len(pos)} atoms, {int(outer.sum())} of them (farther "
+          f"than 0.3 x the {edge:.1f} A edge from the centre) at alpha 0.3, "
+          f"{width}x{height} S={S} shadows, max_trans 4: first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames against phase 3's opaque "
+          f"{headline_warm_ms:.3f} ms, peak allocated {t1_peak} bytes, kernel "
+          f"launches {t1_launches}")
+    if not ren._scene[6]:
+        fail("T1 rendered without transparency")
+    if tuple(img.shape) != (height, width, 3) or not float(img.float().std()) > 1:
+        fail("the T1 frame is wrong or flat")
+    _, frame_bins, chunk_data, lights, params = ren._accel
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, n_peel=4)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    t1_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    t1_hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    print(f"  kernel (full frame) {t1_kernel_ms:.3f} ms against phase 3's opaque "
+          f"{kernel_ms:.3f} ms ({t1_kernel_ms / kernel_ms:.2f}x); split: closest "
+          f"hit + shading over the peels {t1_hit_ms:.3f} ms, shadow walks "
+          f"+{t1_kernel_ms - t1_hit_ms:.3f} ms")
+    plain_out = []
+    work, t_plain = sync_time(lambda: megakernel.count_work(
+        lambda: plain_out.append(megakernel.mega_render_plain(*args, **kw))))
+    out_k = megakernel.mega_render_cuda(*args, **kw)
+    peel_errs.append(compare(out_k, plain_out[0], f"[T1] full frame (plain "
+                                                  f"{t_plain:.2f} s)"))
+    nb = frame_bins.sph_zmin.shape[0]
+    ran = [work.get(f"peel{p}", 0) for p in range(4)] + [0]
+    print("  live tiles by the peels they ran: " + ", ".join(
+        f"{k}: {ran[k - 1] - ran[k]}" for k in range(1, 5))
+        + f" (of {nb} tiles, {nb - ran[0]} without a candidate); "
+        f"records walked {work.get('record', 0)} over {work.get('lit', 0)} lit "
+        f"rays ({work.get('record', 0) / max(1, work.get('lit', 0)):.1f} a lit "
+        f"ray); chunks read {work.get('chunk', 0)}")
+    frame_bound("T1", work, t1_kernel_ms, nb, lights=lights)
+    del out_k, plain_out
+    t1 = band_check(megakernel, args, kw, frame_bins, f"[T1] on {card}",
+                    lights=lights)
+    peel_errs.append(t1["err"])
+    del ren, args, chunk_data, lights, frame_bins, img
+    torch.cuda.empty_cache()
+
     # ---- 5. BASELINE config 2: BCC Fe + bonds, AA 12 + shadows ---------------
     width, height, S = 1920, 1080, 13
     fe = bcc_system(6)
@@ -1026,20 +1260,61 @@ def main() -> None:
     out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
     errs.append(compare(out_k, out_p, f"[5] config 2 full frame (plain {t_plain:.2f} s)"))
     frame_bound("config 2", megakernel.plain_work(*args, **kw), c2_kernel_ms,
-                frame_bins.sph_zmin.shape[0], S, other=other, lights=lights)
+                frame_bins.sph_zmin.shape[0], other=other, lights=lights)
     del out_k, out_p
-    ty0 = frame_bins.tiles_y // 2 - rows // 2
-    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
-    c2_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
-    c2_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
-    work = megakernel.plain_work(*args, tiles=band, **kw)
-    c2_bound_ms, c2_bound_by, ops = bound(work, band_bytes(
-        work, band[1] - band[0], S, other=other, lights=lights))
-    print(f"  config 2 band of {band[1] - band[0]} tiles on {card}: kernel "
-          f"{c2_band_ms:.3f} ms, plain {c2_plain_ms:.3f} ms; work {work}, "
-          f"{ops:.4g} fp32 operations, bound {c2_bound_ms:.4f} ms by "
-          f"{c2_bound_by}")
+    b_c2 = band_check(megakernel, args, kw, frame_bins,
+                      f"[5] config 2 on {card}", other=other, lights=lights)
+    errs.append(b_c2["err"])
     del ren, args, chunk_data, lights, frame_bins, other, img, _
+    torch.cuda.empty_cache()
+
+    # ---- T3. config 2 translucent: the atoms at alpha 0.4, bonds opaque ------
+    colors_t3 = colors2.copy()
+    colors_t3[:, 3] = 0.4
+    ren = TachyonRender(backend="cuda", ao=False)
+    megakernel.reset_launches()
+    rgba, t_sys = sync_time(lambda: ren.render_system(
+        fe, colors=colors_t3, radii=rad2, camera=cam2, draw_bond=True,
+        bond_radius=0.2, width=width, height=height))
+    if (megakernel.launches != 1 or not ren._scene[6] or ren._other is None
+            or rgba.shape != (height, width, 4) or not float(rgba[..., :3].std()) > 1):
+        fail(f"the T3 render_system frame took {megakernel.launches} launches, "
+             f"transparency {ren._scene[6]}, or is wrong or flat")
+
+    def t3_frame():
+        return ren.render(pos2, colors_t3, rad2, camera=cam2, bond_edges=bonds2,
+                          bond_radius=0.2, box_edges=cell2, width=width,
+                          height=height, device_output=True)
+
+    img, t_first, t_warm, t3_launches, t3_per_frame, t3_peak = drive(
+        megakernel, t3_frame, "T3")
+    print(f"[T3] {card}: config 2 with its {fe.N} atoms at alpha 0.4 (bonds and "
+          f"cell opaque) {width}x{height} S={S} shadows, max_trans 4: "
+          f"render_system frame {t_sys * 1e3:.1f} ms, first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames against phase 5's opaque {config2_warm_ms:.3f} "
+          f"ms, peak allocated {t3_peak} bytes, kernel launches {t3_launches}")
+    if not float(img.float().std()) > 1:
+        fail("the T3 frame is flat")
+    (_, frame_bins, chunk_data, lights, params), other = ren._accel, ren._other
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, other=other, n_peel=4)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    t3_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    walk_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        *args, **dict(kw, other=other._replace(occ=None))), 5)
+    print(f"  kernel (full frame) {t3_kernel_ms:.3f} ms against phase 5's opaque "
+          f"{c2_kernel_ms:.3f} ms; split: closest hit + cyl/ring pass + "
+          f"shading over the peels {hit_ms:.3f} ms, cell walks "
+          f"+{walk_ms - hit_ms:.3f} ms, occluder tables "
+          f"+{t3_kernel_ms - walk_ms:.3f} ms")
+    t3 = band_check(megakernel, args, kw, frame_bins, f"[T3] on {card}",
+                    other=other, lights=lights)
+    peel_errs.append(t3["err"])
+    del ren, args, chunk_data, lights, frame_bins, other, img
     torch.cuda.empty_cache()
 
     # ---- 7. the heavy-bond frame: 7x7x7 BCC Fe, past the megakernel's limit ----
@@ -1133,7 +1408,7 @@ def main() -> None:
 
     # ---- 4. BASELINE config 3: ~1M-atom polycrystal with fast AO ------------
     t0 = time.perf_counter()
-    pos = voronoi_polycrystal()
+    pos, grain = voronoi_polycrystal()
     t_build = time.perf_counter() - t0
     n_atoms = len(pos)
     colors = np.tile(np.array([[0.78, 0.5, 0.2, 1.0]], np.float32), (n_atoms, 1))
@@ -1252,23 +1527,15 @@ def main() -> None:
     out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
     errs.append(compare(out_k, out_p, f"[4] AO full frame (plain {t_plain:.2f} s)"))
     del out_k, out_p
-    ty0 = frame_bins.tiles_y // 2 - rows // 2
-    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
-    ao_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
-    ao_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
-    work = megakernel.plain_work(*args, tiles=band, **kw)
-    ao_bound_ms, ao_bound_by, ops = bound(work, band_bytes(
-        work, band[1] - band[0], S, lights=lights))
-    print(f"  AO band of {band[1] - band[0]} tiles on {card}: kernel "
-          f"{ao_band_ms:.3f} ms, plain {ao_plain_ms:.3f} ms; work {work}, "
-          f"{ops:.4g} fp32 operations, bound {ao_bound_ms:.4f} ms by "
-          f"{ao_bound_by}")
+    b_ao = band_check(megakernel, args, kw, frame_bins, f"[4] AO on {card}",
+                      lights=lights)
+    errs.append(b_ao["err"])
     frame_bound("config 3", megakernel.plain_work(*args, **kw), ao_kernel_ms,
-                frame_bins.sph_zmin.shape[0], S, lights=lights)
+                frame_bins.sph_zmin.shape[0], lights=lights)
     print(f"[3+4] {card}: headline (1 light) warm {headline_warm_ms:.3f} ms/frame, "
           f"config 3 (AO) warm {t_warm * 1e3:.3f} ms/frame")
     config3_warm_ms = t_warm * 1e3
-    del ren, args, chunk_data, lights, frame_bins
+    del ren, args, chunk_data, lights, frame_bins, primary_only, ao_before, img2
     torch.cuda.empty_cache()
 
     # ---- 6. config 3 as render_system draws it: the polycrystal's cell -------
@@ -1320,16 +1587,57 @@ def main() -> None:
           f"ms, cell walks +{walk_ms - hit_ms:.3f} ms, occluder tables "
           f"+{box_kernel_ms - walk_ms:.3f} ms")
     print(f"  light grids: {light_grid(lights)}; phase 4: {grid_note}")
-    band = (ty0 * frame_bins.tiles_x, (ty0 + rows) * frame_bins.tiles_x)
-    out_k = megakernel.mega_render_cuda(*args, tiles=band, **kw)
-    out_p = megakernel.mega_render_plain(*args, tiles=band, **kw)
-    errs.append(compare(out_k, out_p, "[6] config 3 + cell, band"))
-    box_band_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, tiles=band, **kw), 10)
-    box_plain_ms = event_ms(lambda: megakernel.mega_render_plain(*args, tiles=band, **kw), 2)
-    print(f"  kernel (full frame) {box_kernel_ms:.3f} ms; band of "
-          f"{band[1] - band[0]} tiles: kernel {box_band_ms:.3f} ms, plain "
-          f"{box_plain_ms:.3f} ms")
-    del ren, args, chunk_data, lights, frame_bins, other, out_k, out_p
+    print(f"  kernel (full frame) {box_kernel_ms:.3f} ms")
+    b_box = band_check(megakernel, args, kw, frame_bins,
+                       f"[6] config 3 + cell on {card}", other=other,
+                       lights=lights)
+    errs.append(b_box["err"])
+    del ren, args, chunk_data, lights, frame_bins, other
+    torch.cuda.empty_cache()
+
+    # ---- T2. config 3 translucent: grain 0 opaque, the other 14 at 0.2 -------
+    colors_t2 = colors.copy()
+    colors_t2[grain != 0, 3] = 0.2
+    ren = TachyonRender(backend="cuda", ao=True, ao_samples=K, aa_samples=AA,
+                        background=(1.0, 1.0, 1.0))
+
+    def t2_frame():
+        return ren.render(pos, colors_t2, radii, camera=cam, width=width,
+                          height=height, device_output=True)
+
+    img, t_first, t_warm, t2_launches, t2_per_frame, t2_peak = drive(
+        megakernel, t2_frame, "T2")
+    print(f"[T2] {card}: config 3 with {int((grain == 0).sum())} atoms of grain "
+          f"0 opaque and {int((grain != 0).sum())} at alpha 0.2, {width}x{height} "
+          f"S={S} shadows + AO {K}, max_trans 4: first frame "
+          f"{t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} ms/frame over "
+          f"{WARM_FRAMES} frames against phase 4's opaque {config3_warm_ms:.3f} "
+          f"ms, peak allocated {t2_peak} bytes, kernel launches {t2_launches}")
+    if not ren._scene[6]:
+        fail("T2 rendered without transparency")
+    if tuple(img.shape) != (height, width, 3) or not float(img.float().std()) > 1:
+        fail("the T2 frame is wrong or flat")
+    _, frame_bins, chunk_data, lights, params = ren._accel
+    kw = dict(S=S, tiles_x=frame_bins.tiles_x, grid_n=32, eps=ren._cfg.eps,
+              perspective=True, shadows=True, n_peel=4)
+    args = (chunk_data, frame_bins.sph_zmin, lights, params, 0)
+    t2_kernel_ms = event_ms(lambda: megakernel.mega_render_cuda(*args, **kw), 5)
+    primary_only = megakernel.LightStack(
+        lights.lparams[:1].contiguous(), lights.lrec,
+        *(t[:1].contiguous() for t in lights[2:]))
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    prim_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, primary_only, params, 0, **kw), 5)
+    print(f"  kernel (full frame) {t2_kernel_ms:.3f} ms against phase 4's opaque "
+          f"{ao_kernel_ms:.3f} ms; split: closest hit + shading over the peels "
+          f"{hit_ms:.3f} ms, primary walks +{prim_ms - hit_ms:.3f} ms, {K} AO "
+          f"walks +{t2_kernel_ms - prim_ms:.3f} ms")
+    t2 = band_check(megakernel, args, kw, frame_bins, f"[T2] on {card}",
+                    lights=lights)
+    peel_errs.append(t2["err"])
+    del ren, args, chunk_data, lights, frame_bins, img, primary_only
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [{
@@ -1337,23 +1645,41 @@ def main() -> None:
         "route": "cuda",
         "source": "mdapy_tpu_torch/csrc/mega_render.cu",
         "replaces": "mdapy_tpu/render/megakernel.py:156",
-        "launches": launches + ao_launches + box_launches + c2_launches,
-        "max_abs_err": max(errs),
-        "ms": band_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches": (launches + ao_launches + box_launches + c2_launches
+                     + t1_launches + t2_launches + t3_launches),
+        "max_abs_err": max(errs + peel_errs),
+        "ms": b_head["ms"],
+        "plain_ms": b_head["plain_ms"],
+        "bound_ms": b_head["bound_ms"],
+        "bound_by": b_head["bound_by"],
         "library_ms": None,
-        "ao_ms": ao_band_ms,
-        "ao_plain_ms": ao_plain_ms,
-        "ao_bound_ms": ao_bound_ms,
-        "ao_bound_by": ao_bound_by,
-        "config3_cell_ms": box_band_ms,
-        "config3_cell_plain_ms": box_plain_ms,
-        "config2_ms": c2_band_ms,
-        "config2_plain_ms": c2_plain_ms,
-        "config2_bound_ms": c2_bound_ms,
-        "config2_bound_by": c2_bound_by,
+        "ao_ms": b_ao["ms"],
+        "ao_plain_ms": b_ao["plain_ms"],
+        "ao_bound_ms": b_ao["bound_ms"],
+        "ao_bound_by": b_ao["bound_by"],
+        "config3_cell_ms": b_box["ms"],
+        "config3_cell_plain_ms": b_box["plain_ms"],
+        "config3_cell_bound_ms": b_box["bound_ms"],
+        "config3_cell_bound_by": b_box["bound_by"],
+        "config2_ms": b_c2["ms"],
+        "config2_plain_ms": b_c2["plain_ms"],
+        "config2_bound_ms": b_c2["bound_ms"],
+        "config2_bound_by": b_c2["bound_by"],
+        "peel_launches": t1_launches + t2_launches + t3_launches,
+        "peel_launches_per_frame": max(t1_per_frame, t2_per_frame, t3_per_frame),
+        "peel_max_abs_err": max(peel_errs),
+        "peel_ms": t1["ms"],
+        "peel_plain_ms": t1["plain_ms"],
+        "peel_bound_ms": t1["bound_ms"],
+        "peel_bound_by": t1["bound_by"],
+        "peel_config3_ms": t2["ms"],
+        "peel_config3_plain_ms": t2["plain_ms"],
+        "peel_config3_bound_ms": t2["bound_ms"],
+        "peel_config3_bound_by": t2["bound_by"],
+        "peel_config2_ms": t3["ms"],
+        "peel_config2_plain_ms": t3["plain_ms"],
+        "peel_config2_bound_ms": t3["bound_ms"],
+        "peel_config2_bound_by": t3["bound_by"],
     }, {
         "name": "closest_hit_spheres_tiles",
         "route": "cuda",

@@ -1,13 +1,13 @@
 // Hand CUDA kernel for the render pass of one frame: raygen with AA jitter,
 // front-to-back sphere closest hit, the bond / box-edge cylinders and their
 // ring caps, Lambert shading, the primary light's shadow sweep, the
-// ambient-occlusion sky lights and the AA mean, for opaque scenes.
+// ambient-occlusion sky lights, transparency peeling and the AA mean.
 //
-// Replaces the opaque one-shot slice of the Pallas TPU kernel
+// Replaces the one-shot slice of the Pallas TPU kernel
 // mdapy_tpu/render/megakernel.py:_mega_kernel (launched at :2051 by
-// render_image_mega).  Not covered: transparency peeling and the banded
-// variant.  It computes what that kernel computes for the slice; it is not a
-// block-by-block translation:
+// render_image_mega).  Not covered: the banded variant.  It computes what
+// that kernel computes for the slice; it is not a block-by-block
+// translation:
 //   * one thread block per 16x16 screen tile, one thread per pixel, the AA
 //     samples looped inside the thread in groups of up to SG (each group
 //     shares one walk over the tile's candidate chunks);
@@ -43,7 +43,28 @@
 //     them.  The primary light does this per sample group, each sky light on
 //     sample 0; every cell walk of a group comes before the first occluder
 //     test, so no barrier falls between walks of uneven length.  Without
-//     OTHER the code is the sphere-only kernel.
+//     OTHER the code is the sphere-only kernel;
+//   * with transparency (the PEEL template flag; megakernel.py:328-406,
+//     1338-1396) the block runs up to n_peel peels, each over every sample
+//     group, and a peel p > 0 only while the largest weight W over the
+//     tile's samples exceeds 1e-4, the JAX kernel's tile-wide rule.  Each
+//     ray's state between peels (origin, W, colour sums, camera depth: 8
+//     floats) is kept per sample and pixel in dynamic shared memory, or in a
+//     device buffer the caller passes where S makes that too large.  A peel
+//     starts a ray at its previous hit plus eps along it (a miss at its own
+//     origin); with n_peel > 1 the rays no longer share the camera as
+//     origin, so the perspective chunk and cyl/ring tests take the per-ray
+//     form, and the zmin exit adds each ray's camera depth.  The hit is
+//     shaded as in the opaque kernel with transmissions for shadow bits:
+//     the cell walk multiplies 1 - alpha per occluder and ends at 1e-3
+//     (walk_cell_trans), the occluder table multiplies every lit ray whose
+//     transmission is > 0, its entries staged in table order so the
+//     products round alike in every run, and each AO sky light keeps one
+//     float per pixel, sample 0's transmission of this peel.  The colour
+//     sums gain W * alpha * colour (a miss: the background at alpha 1), W
+//     becomes W * (1 - alpha), and the frame is the sums plus W times the
+//     background, averaged over the samples.  peel1 is n_peel = 1 with this
+//     compositing.  Without PEEL the code is the opaque kernel.
 //
 // What bounds it on the card: per-ray sphere tests (about 10 fp32 operations
 // each, ~128 per processed chunk) and the shadow walks, whose lengths vary
@@ -139,6 +160,29 @@ __device__ __forceinline__ bool light_blocked(const float* lp, float hx,
   return occluded(lrec, loffs, lcnt, lkmax, cell, u, v, tau + eps);
 }
 
+// The transmission of hit point h toward the light of row lp through its
+// light-grid cell's records (walk_cell_trans behind the max-key gate).
+__device__ __forceinline__ float light_trans(const float* lp, float hx,
+                                             float hy, float hz, int grid_n,
+                                             int cell0, float eps,
+                                             const float4* __restrict__ lrec,
+                                             const int* __restrict__ loffs,
+                                             const int* __restrict__ lcnt,
+                                             const float* __restrict__ lkmax) {
+  const float u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9];
+  const float v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10];
+  const float tau = hx * lp[0] + hy * lp[1] + hz * lp[2];
+  const float gmax = (float)(grid_n - 1);
+  const float gx = fminf(fmaxf(floorf(u * lp[11]), 0.0f), gmax);
+  const float gy = fminf(fmaxf(floorf(v * lp[11]), 0.0f), gmax);
+  const int cell = cell0 + (int)gy * grid_n + (int)gx;
+  const float tau_eps = tau + eps;
+  const int cnt = lcnt[cell];
+  if (!(cnt > 0 && lkmax[cell] > tau_eps)) return 1.0f;
+  return render::walk_cell_trans(lrec + 2 * (size_t)loffs[cell], cnt, u, v,
+                                 tau_eps);
+}
+
 // t of a camera ray against one cylinder body (typ 1) or ring disc (typ 2),
 // BIG on a miss: the JAX kernel's dense pass (megakernel.py:513-549), with
 // oc = ray origin - record position and the ray-independent op / cq terms
@@ -195,6 +239,41 @@ __device__ __forceinline__ void block_min(float (&v)[N], float* red) {
     for (int w = 1; w < P / 32; ++w) r = fminf(r, red[i * (P / 32) + w]);
     v[i] = r;
   }
+}
+
+// True when the cylinder body (b.w == 1) or ring disc (b.w == 2) staged as
+// (a, b, e, f) blocks the point h toward the light direction l: a = (p,
+// rad), b = (axis, typ), e = (l minus its axis part, its squared length
+// a2), f = (axis.l, 1 / a2, alen, -), as occ_blocked stages them.  The test
+// is occ_blocked's, which keeps its own copy inline: the opaque kernels'
+// register allocation stays as it was before the peel kernels came.
+__device__ __forceinline__ bool stage_occludes(float4 a, float4 b, float4 e,
+                                               float4 f, float hx, float hy,
+                                               float hz, float lx, float ly,
+                                               float lz, float eps) {
+  const float ocx = hx - a.x, ocy = hy - a.y, ocz = hz - a.z;
+  const float oca = ocx * b.x + ocy * b.y + ocz * b.z;
+  if (b.w == 1.0f) {
+    const float opx = ocx - oca * b.x, opy = ocy - oca * b.y,
+                opz = ocz - oca * b.z;
+    const float bq = opx * e.x + opy * e.y + opz * e.z;
+    const float cq = opx * opx + opy * opy + opz * opz - a.w * a.w;
+    const float disc = bq * bq - e.w * cq;
+    if (disc >= 0.0f && e.w > 1e-12f) {
+      const float sq = sqrtf(disc);
+      const float t1 = (-bq - sq) * f.y;
+      const float t2 = (-bq + sq) * f.y;
+      const float s1 = oca + t1 * f.x;
+      const float s2 = oca + t2 * f.x;
+      return (t1 > eps && s1 >= 0.0f && s1 <= f.z) ||
+             (t2 > eps && s2 >= 0.0f && s2 <= f.z);
+    }
+  } else if (b.w == 2.0f && fabsf(f.x) > 1e-12f) {
+    const float tr0 = -oca / f.x;
+    const float rx = ocx + tr0 * lx, ry = ocy + tr0 * ly, rz = ocz + tr0 * lz;
+    return tr0 > eps && rx * rx + ry * ry + rz * rz <= a.w * a.w;
+  }
+  return false;
 }
 
 // Occluder-table test of the hit points (hx, hy, hz)[k] toward the light of
@@ -307,7 +386,106 @@ __device__ __forceinline__ uint32_t occ_blocked(
   return hit;
 }
 
-template <bool PERSP, bool SHADOWS, bool AO, bool OTHER>
+// The occluder-table test of translucent scenes: as occ_blocked, but each
+// sample k of testm has its transmission tr[k] multiplied by 1 - alpha (0 at
+// alpha >= 0.99999) of every entry that blocks it, and leaves the test once
+// it is 0.  The entries that pass the cull are staged in the table's order
+// (a ballot and a prefix over the warps, wcnt holding P / 32 ints), so each
+// product is taken in ascending entry order, as the plain version takes it.
+// Every thread of the block must call it.
+__device__ __forceinline__ void occ_trans(
+    const float* lp, const float4* __restrict__ occ, int nocc, float eps,
+    uint32_t rectm, uint32_t testm, const float (&hx)[SG],
+    const float (&hy)[SG], const float (&hz)[SG], float (&tr)[SG],
+    float4* stage, float* red, int* wcnt) {
+  float r[5] = {BIG, BIG, BIG, BIG, BIG};  // umin, -umax, vmin, -vmax, taumin
+#pragma unroll
+  for (int k = 0; k < SG; ++k) {
+    if ((rectm >> k) & 1u) {
+      const float u = hx[k] * lp[3] + hy[k] * lp[4] + hz[k] * lp[5] - lp[9];
+      const float v = hx[k] * lp[6] + hy[k] * lp[7] + hz[k] * lp[8] - lp[10];
+      const float tau = hx[k] * lp[0] + hy[k] * lp[1] + hz[k] * lp[2];
+      r[0] = fminf(r[0], u);
+      r[1] = fminf(r[1], -u);
+      r[2] = fminf(r[2], v);
+      r[3] = fminf(r[3], -v);
+      r[4] = fminf(r[4], tau);
+    }
+  }
+  block_min<5>(r, red);
+  const float umin = r[0], umax = -r[1], vmin = r[2], vmax = -r[3];
+  if (!(umax >= umin)) return;  // no lit sample in the block (uniform)
+  const float ucx = 0.5f * (umin + umax), vcx = 0.5f * (vmin + vmax);
+  const float du = umax - umin, dv = vmax - vmin;
+  const float halfdiag = 0.5f * sqrtf(du * du + dv * dv);
+  const float tgate = r[4] + eps;
+  const float lx = lp[0], ly = lp[1], lz = lp[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int b0 = 0; b0 < nocc; b0 += OCB) {
+    const int i = b0 + (int)threadIdx.x;
+    bool keep = false;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), d = a;
+    if (i < nocc) {
+      a = occ[4 * (size_t)i];                   // p, rad
+      const float4 c = occ[4 * (size_t)i + 1];  // u0, v0, lateral pad, far key
+      d = occ[4 * (size_t)i + 3];               // alen, u1, v1, alpha
+      const float bx = d.y - c.x, by = d.z - c.y;
+      const float wx = ucx - c.x, wy = vcx - c.y;
+      float ts = (wx * bx + wy * by) / fmaxf(bx * bx + by * by, 1e-12f);
+      ts = fminf(fmaxf(ts, 0.0f), 1.0f);
+      const float dxs = wx - ts * bx, dys = wy - ts * by;
+      const float lim = c.z + halfdiag + eps;
+      keep = a.w > 0.0f && dxs * dxs + dys * dys <= lim * lim && c.w > tgate;
+    }
+    const uint32_t ball = __ballot_sync(0xffffffffu, keep);
+    __syncthreads();  // the previous batch's readers are done
+    if (lane == 0) wcnt[warp] = __popc(ball);
+    __syncthreads();
+    int base = 0, n = 0;
+#pragma unroll
+    for (int w = 0; w < P / 32; ++w) {
+      const int cw = wcnt[w];
+      base += w < warp ? cw : 0;
+      n += cw;
+    }
+    if (keep) {
+      const int s = base + __popc(ball & ((1u << lane) - 1u));
+      const float4 b = occ[4 * (size_t)i + 2];  // axis, typ
+      const float dda = b.x * lx + b.y * ly + b.z * lz;
+      const float dpx = lx - dda * b.x, dpy = ly - dda * b.y,
+                  dpz = lz - dda * b.z;
+      const float a2 = dpx * dpx + dpy * dpy + dpz * dpz;
+      stage[4 * s] = a;
+      stage[4 * s + 1] = b;
+      stage[4 * s + 2] = make_float4(dpx, dpy, dpz, a2);
+      stage[4 * s + 3] = make_float4(dda, 1.0f / (a2 > 1e-12f ? a2 : 1.0f),
+                                     d.x, d.w >= 0.99999f ? 0.0f : 1.0f - d.w);
+    }
+    __syncthreads();
+    uint32_t todo = 0u;
+#pragma unroll
+    for (int k = 0; k < SG; ++k)
+      if (((testm >> k) & 1u) && tr[k] > 0.0f) todo |= 1u << k;
+    for (int j = 0; j < n && todo; ++j) {
+      const float4 a = stage[4 * j], b = stage[4 * j + 1];
+      const float4 e = stage[4 * j + 2], f = stage[4 * j + 3];
+#pragma unroll
+      for (int k = 0; k < SG; ++k) {
+        if (((todo >> k) & 1u) &&
+            stage_occludes(a, b, e, f, hx[k], hy[k], hz[k], lx, ly, lz, eps)) {
+          tr[k] = tr[k] * f.w;
+          if (!(tr[k] > 0.0f)) todo &= ~(1u << k);
+        }
+      }
+    }
+  }
+}
+
+// Fields of a ray's peel state, 8 floats per (sample, pixel): field f of
+// sample s at st[(f * S + s) * P + pixel].
+enum { ST_OX, ST_OY, ST_OZ, ST_W, ST_AR, ST_AG, ST_AB, ST_CUMT, ST_N };
+
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
 __global__ void __launch_bounds__(P)
 mega_render_kernel(const float* __restrict__ params,
                    const float* __restrict__ lparams, // (nlights, 16)
@@ -324,7 +502,8 @@ mega_render_kernel(const float* __restrict__ params,
                    float* __restrict__ out,           // (ntiles, 3*P)
                    int tile0, int nchunks, int tiles_x, int S,
                    uint32_t seed, int grid_n, int nlights, int nocc,
-                   float eps, float inv_s) {
+                   float eps, float inv_s, int n_peel,
+                   float* __restrict__ gstate) {  // PEEL: state, or null
   __shared__ float sp[64];
   __shared__ float slp[AO ? MAX_LIGHTS * 16 : 1];
   __shared__ float4 cand[CH];
@@ -332,6 +511,11 @@ mega_render_kernel(const float* __restrict__ params,
   __shared__ float4 ostage[OTHER ? 4 * OCB : 1];
   __shared__ float ored[OTHER ? 5 * (P / 32) : 1];
   __shared__ int oscount;
+  float* dsm = nullptr;  // PEEL: the dynamic shared memory below
+  if constexpr (PEEL) {
+    extern __shared__ float dyn_smem[];
+    dsm = dyn_smem;
+  }
 
   const int tile = tile0 + blockIdx.x;
   const int pix = threadIdx.x;
@@ -367,9 +551,37 @@ mega_render_kernel(const float* __restrict__ params,
   const float sub_y = (float)(pix / TILE);
   const float* tchunks = chunks + (size_t)tile * nchunks * 8 * CH;
 
+  // PEEL: the ordered table test's warp counts, each sky light's
+  // transmission at sample 0's hit (one row of P per light l >= 1), then the
+  // rays' peel state unless the caller gave it a device buffer
+  int* wcnt = reinterpret_cast<int*>(dsm);
+  float* aot = dsm + P / 32;
+  const size_t SP = (size_t)S * P;
+  float* st = gstate ? gstate + (size_t)blockIdx.x * ST_N * SP
+                     : dsm + P / 32 + (size_t)(nlights - 1) * P;
+  const bool multi = PEEL && n_peel > 1;
+  const bool camo = PERSP && !multi;  // every ray starts at the camera
+  if (PEEL) {
+    for (int s = 0; s < S; ++s) {
+      const size_t o = (size_t)s * P + pix;
+      st[ST_W * SP + o] = 1.0f;
+      st[ST_AR * SP + o] = st[ST_AG * SP + o] = st[ST_AB * SP + o] = 0.0f;
+      st[ST_CUMT * SP + o] = 0.0f;
+    }
+  }
+
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   uint64_t aoblocked = 0;  // bit l: sky light l blocked at sample 0's hit
   const int ngroups = (S + SG - 1) / SG;
+  const int npeel = PEEL ? n_peel : 1;
+  for (int peel = 0; peel < npeel; ++peel) {
+  if (PEEL && peel > 0) {
+    // a later peel runs while some ray of the tile keeps a weight > 1e-4
+    float wmax = 0.0f;
+    for (int s = 0; s < S; ++s)
+      wmax = fmaxf(wmax, st[ST_W * SP + (size_t)s * P + pix]);
+    if (!(block_max(wmax, red) > 1e-4f)) break;  // uniform across the block
+  }
   for (int g = 0; g < ngroups; ++g) {
     const int s0 = g * S / ngroups;
     const int ns = (g + 1) * S / ngroups - s0;
@@ -377,6 +589,7 @@ mega_render_kernel(const float* __restrict__ params,
     // ---- ray generation --------------------------------------------------
     float rdx[SG], rdy[SG], rdz[SG], rox[SG], roy[SG], roz[SG];
     float tcap[SG], bt[SG];
+    float cum[SG];  // with n_peel > 1: each ray's camera depth so far
     int bidx[SG];
     float need = -BIG;
 #pragma unroll
@@ -411,6 +624,14 @@ mega_render_kernel(const float* __restrict__ params,
           dy = vwy;
           dz = vwz;
         }
+        if (PEEL && peel > 0) {
+          // past the previous peel's hit point, by eps along the ray
+          const float* o = st + (size_t)s * P + pix;
+          rox[k] = o[ST_OX * SP] + eps * dx;
+          roy[k] = o[ST_OY * SP] + eps * dy;
+          roz[k] = o[ST_OZ * SP] + eps * dz;
+        }
+        if (multi) cum[k] = st[ST_CUMT * SP + (size_t)s * P + pix];
         rdx[k] = dx;
         rdy[k] = dy;
         rdz[k] = dz;
@@ -422,7 +643,7 @@ mega_render_kernel(const float* __restrict__ params,
         const float tnear = fmaxf(fmaxf(n0, n1), n2);
         const float tfar = fminf(fminf(f0, f1), f2);
         tcap[k] = tfar >= fmaxf(tnear, 0.0f) ? tfar : -BIG;
-        need = fmaxf(need, tcap[k]);
+        need = fmaxf(need, multi ? tcap[k] + cum[k] : tcap[k]);
       }
     }
     need = block_max(need, red);
@@ -434,7 +655,7 @@ mega_render_kernel(const float* __restrict__ params,
         const float* ch = tchunks + (size_t)c * 8 * CH;
         const float cx = ch[pix], cy = ch[CH + pix], cz = ch[2 * CH + pix];
         const float r = ch[3 * CH + pix];
-        if (PERSP) {
+        if (camo) {
           const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
           const float ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
           // a dead slot gets ccb = +inf, so its discriminant is negative
@@ -450,7 +671,7 @@ mega_render_kernel(const float* __restrict__ params,
         for (int k = 0; k < SG; ++k) {
           if (k < ns) {
             float b, ccb;
-            if (PERSP) {
+            if (camo) {
               b = q.x * rdx[k] + q.y * rdy[k] + q.z * rdz[k];
               ccb = q.w;
             } else {
@@ -472,11 +693,13 @@ mega_render_kernel(const float* __restrict__ params,
       float ln = -BIG;
 #pragma unroll
       for (int k = 0; k < SG; ++k)
-        if (k < ns) ln = fmaxf(ln, fminf(bt[k], tcap[k]));
+        if (k < ns)
+          ln = fmaxf(ln, multi ? fminf(bt[k], tcap[k]) + cum[k]
+                               : fminf(bt[k], tcap[k]));
       need = block_max(ln, red);  // its barriers also retire this chunk's reads
     }
 
-    if constexpr (OTHER) {
+    if constexpr (OTHER || PEEL) {
       // ---- dense cyl/ring pass over the tile's records, in slot order -------
       for (int b0 = 0; b0 < ocount; b0 += OCB) {
         const int n = min(OCB, ocount - b0);
@@ -485,7 +708,7 @@ mega_render_kernel(const float* __restrict__ params,
           const float4* rp = trec + 4 * (size_t)(b0 + pix);
           const float4 a = rp[0], ax = rp[2];  // (p, rad), (axis, typ)
           const float alen = rp[3].x;
-          if (PERSP) {
+          if (camo) {
             const float ocx = ox - a.x, ocy = oy - a.y, ocz = oz - a.z;
             const float oca = ocx * ax.x + ocy * ax.y + ocz * ax.z;
             const float opx = ocx - oca * ax.x, opy = ocy - oca * ax.y,
@@ -504,12 +727,12 @@ mega_render_kernel(const float* __restrict__ params,
           const float4 q0 = ostage[4 * j], ax = ostage[4 * j + 1];
           const float4 q3 = ostage[4 * j + 3];
           float4 q2 = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (PERSP) q2 = ostage[4 * j + 2];
+          if (camo) q2 = ostage[4 * j + 2];
 #pragma unroll
           for (int k = 0; k < SG; ++k) {
             if (k < ns) {
               float t;
-              if (PERSP) {
+              if (camo) {
                 t = cylring_t(q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, q2.z, q2.w,
                               ax, q3.x, q3.y, rdx[k], rdy[k], rdz[k], eps);
               } else {
@@ -588,16 +811,23 @@ mega_render_kernel(const float* __restrict__ params,
       // ---- cell walks: the primary light per sample, the AO sky lights on ----
       // sample 0.  No barrier falls between them, so the walks of one thread
       // overlap the others' whatever their lengths.
+      // With PEEL, tr[k] holds sample k's transmission toward the primary
+      // light and aot each sky light's at sample 0, in place of the bits.
       uint32_t litm = 0u, blkm = 0u;
+      float tr[SG];
 #pragma unroll
       for (int k = 0; k < SG; ++k) {
+        tr[k] = 1.0f;
         if (k < ns) {
           const float inten = rdx[k] * lx + rdy[k] * ly + rdz[k] * lz;
           if (inten > MINCONTRIB && !((missm >> k) & 1u)) {
             litm |= 1u << k;
-            if (SHADOWS && light_blocked(sp + 15, rox[k], roy[k], roz[k],
-                                         grid_n, 0, eps, lrec, loffs, lcnt,
-                                         lkmax))
+            if (SHADOWS && PEEL)
+              tr[k] = light_trans(sp + 15, rox[k], roy[k], roz[k], grid_n, 0,
+                                  eps, lrec, loffs, lcnt, lkmax);
+            else if (SHADOWS && light_blocked(sp + 15, rox[k], roy[k], roz[k],
+                                              grid_n, 0, eps, lrec, loffs,
+                                              lcnt, lkmax))
               blkm |= 1u << k;
           }
         }
@@ -608,15 +838,48 @@ mega_render_kernel(const float* __restrict__ params,
         for (int l = 1; l < nlights; ++l) {
           const float* lp = slp + 16 * l;
           const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
-          if (il > MINCONTRIB && !miss0 &&
-              light_blocked(lp, rox[0], roy[0], roz[0], grid_n,
-                            l * grid_n * grid_n, eps, lrec, loffs, lcnt, lkmax))
+          if (PEEL)
+            aot[(size_t)(l - 1) * P + pix] =
+                il > MINCONTRIB && !miss0
+                    ? light_trans(lp, rox[0], roy[0], roz[0], grid_n,
+                                  l * grid_n * grid_n, eps, lrec, loffs, lcnt,
+                                  lkmax)
+                    : 1.0f;
+          else if (il > MINCONTRIB && !miss0 &&
+                   light_blocked(lp, rox[0], roy[0], roz[0], grid_n,
+                                 l * grid_n * grid_n, eps, lrec, loffs, lcnt,
+                                 lkmax))
             aoblocked |= 1ull << l;
         }
       }
 
-      // ---- occluder tables, for the points their cell walk left clear -------
-      if (SHADOWS && nocc > 0) {
+      // ---- occluder tables: with PEEL for the points with a transmission
+      // > 0, else for those their cell walk left clear ----------------------
+      if constexpr (PEEL && OTHER) {
+        if (SHADOWS && nocc > 0) {
+          uint32_t testm = 0u;
+#pragma unroll
+          for (int k = 0; k < SG; ++k)
+            if (tr[k] > 0.0f) testm |= litm & (1u << k);
+          occ_trans(sp + 15, occ, nocc, eps, litm, testm, rox, roy, roz, tr,
+                    ostage, ored, wcnt);
+          if (ao0) {
+            for (int l = 1; l < nlights; ++l) {
+              const float* lp = slp + 16 * l;
+              const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
+              const uint32_t lit0 = (il > MINCONTRIB && !miss0) ? 1u : 0u;
+              float t0[SG];
+#pragma unroll
+              for (int k = 0; k < SG; ++k) t0[k] = 1.0f;
+              t0[0] = aot[(size_t)(l - 1) * P + pix];
+              occ_trans(lp, occ + 4 * (size_t)l * nocc, nocc, eps, lit0,
+                        t0[0] > 0.0f ? lit0 : 0u, rox, roy, roz, t0, ostage,
+                        ored, wcnt);
+              aot[(size_t)(l - 1) * P + pix] = t0[0];
+            }
+          }
+        }
+      } else if (OTHER && SHADOWS && nocc > 0) {
         blkm |= occ_blocked(sp + 15, occ, nocc, eps, litm, litm & ~blkm, rox,
                             roy, roz, ostage, ored, &oscount);
         if (ao0) {
@@ -636,37 +899,57 @@ mega_render_kernel(const float* __restrict__ params,
 #pragma unroll
       for (int k = 0; k < SG; ++k) {
         if (k < ns) {
-          float cr = 0.f, cg = 0.f, cb = 0.f;
+          float cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f;
           if (bidx[k] >= OTHER_BIT) {
             const float4 c = trec[4 * (size_t)(bidx[k] - OTHER_BIT) + 1];
             cr = c.x;
             cg = c.y;
             cb = c.z;
+            ca = c.w;
           } else if (bidx[k] >= 0) {
             const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
             cr = rp[4 * CH];
             cg = rp[5 * CH];
             cb = rp[6 * CH];
+            ca = rp[7 * CH];
           }
           const bool missed = (missm >> k) & 1u;
           const float nx = rdx[k], ny = rdy[k], nz = rdz[k];
           const float inten = nx * lx + ny * ly + nz * lz;
           const float lit = ((litm >> k) & 1u) ? 1.0f : 0.0f;
-          const float filt = ((blkm >> k) & 1u) ? 0.0f : 1.0f;
+          const float filt = PEEL ? tr[k] : (((blkm >> k) & 1u) ? 0.0f : 1.0f);
           float sh = lit * inten * lightcol * filt;
           if (AO) {
             for (int l = 1; l < nlights; ++l) {
               const float* lp = slp + 16 * l;
               const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
               const float ll = (il > MINCONTRIB && !missed) ? 1.0f : 0.0f;
-              const float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+              float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+              if (PEEL) fl = SHADOWS ? aot[(size_t)(l - 1) * P + pix] : 1.0f;
               sh = sh + ll * il * lp[12] * fl;
             }
           }
           const float shade = 0.8f * sh + ambient;
-          ar = ar + (missed ? bgr : cr * shade);
-          ag = ag + (missed ? bgg : cg * shade);
-          ab = ab + (missed ? bgb : cb * shade);
+          if constexpr (PEEL) {
+            // composite: the sums gain W a c, W becomes W (1 - a), and the
+            // next peel starts from the hit point
+            float* o = st + (size_t)(s0 + k) * P + pix;
+            const float w = o[ST_W * SP];
+            const float a = missed ? 1.0f : ca;
+            o[ST_AR * SP] = o[ST_AR * SP] + w * a * (missed ? bgr : cr * shade);
+            o[ST_AG * SP] = o[ST_AG * SP] + w * a * (missed ? bgg : cg * shade);
+            o[ST_AB * SP] = o[ST_AB * SP] + w * a * (missed ? bgb : cb * shade);
+            o[ST_W * SP] = w * (1.0f - a);
+            if (multi)
+              o[ST_CUMT * SP] = o[ST_CUMT * SP] + (missed ? 0.0f : bt[k]) + eps;
+            o[ST_OX * SP] = rox[k];
+            o[ST_OY * SP] = roy[k];
+            o[ST_OZ * SP] = roz[k];
+          } else {
+            ar = ar + (missed ? bgr : cr * shade);
+            ag = ag + (missed ? bgg : cg * shade);
+            ab = ab + (missed ? bgb : cb * shade);
+          }
         }
       }
       continue;
@@ -738,38 +1021,73 @@ mega_render_kernel(const float* __restrict__ params,
       }
     }
   }
+  }  // peels
+  if constexpr (PEEL) {
+    // the peeled sums plus the residual weight seeing the background
+    for (int s = 0; s < S; ++s) {
+      const float* o = st + (size_t)s * P + pix;
+      const float w = o[ST_W * SP];
+      ar = ar + o[ST_AR * SP] + w * bgr;
+      ag = ag + o[ST_AG * SP] + w * bgg;
+      ab = ab + o[ST_AB * SP] + w * bgb;
+    }
+  }
   tout[pix] = ar * inv_s;
   tout[P + pix] = ag * inv_s;
   tout[2 * P + pix] = ab * inv_s;
 }
 
-template <bool PERSP, bool SHADOWS, bool AO, bool OTHER>
-void launch(cudaStream_t st, int ntiles, int tile0, const float* params,
-            const float* lparams, const float* chunks, const float* zmin,
-            const float* lrec, const int* loffs, const int* lcnt,
-            const float* lkmax, const float* orec, const int* ooffs,
-            const int* ocnt, const float* occ, float* out, int nchunks,
-            int tiles_x, int S, uint32_t seed, int grid_n, int nlights,
-            int nocc, float eps, float inv_s) {
-  mega_render_kernel<PERSP, SHADOWS, AO, OTHER><<<ntiles, P, 0, st>>>(
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
+cudaError_t launch(cudaStream_t st, int ntiles, int tile0, const float* params,
+                   const float* lparams, const float* chunks,
+                   const float* zmin, const float* lrec, const int* loffs,
+                   const int* lcnt, const float* lkmax, const float* orec,
+                   const int* ooffs, const int* ocnt, const float* occ,
+                   float* out, int nchunks, int tiles_x, int S, uint32_t seed,
+                   int grid_n, int nlights, int nocc, float eps, float inv_s,
+                   int n_peel, float* gstate) {
+  auto kernel = mega_render_kernel<PERSP, SHADOWS, AO, OTHER, PEEL>;
+  size_t dyn = 0;  // PEEL: warp counts, sky-light rows, state
+  if (PEEL) {
+    dyn = sizeof(float) * (P / 32 + (size_t)(nlights - 1) * P +
+                           (gstate ? 0 : (size_t)ST_N * S * P));
+    if (dyn > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  kernel<<<ntiles, P, dyn, st>>>(
       params, lparams, chunks, zmin, reinterpret_cast<const float4*>(lrec),
       loffs, lcnt, lkmax, reinterpret_cast<const float4*>(orec), ooffs, ocnt,
       reinterpret_cast<const float4*>(occ), out, tile0, nchunks, tiles_x, S,
-      seed, grid_n, nlights, nocc, eps, inv_s);
+      seed, grid_n, nlights, nocc, eps, inv_s, n_peel, gstate);
+  return cudaGetLastError();
 }
 
-template <bool PERSP, bool OTHER>
-decltype(&launch<true, true, true, true>) pick(bool shadows, bool ao) {
+using Launch = decltype(&launch<true, true, true, true, true>);
+
+template <bool PERSP, bool OTHER, bool PEEL>
+Launch pick(bool shadows, bool ao) {
   if (shadows)
-    return ao ? &launch<PERSP, true, true, OTHER> : &launch<PERSP, true, false, OTHER>;
-  return ao ? &launch<PERSP, false, true, OTHER> : &launch<PERSP, false, false, OTHER>;
+    return ao ? &launch<PERSP, true, true, OTHER, PEEL>
+              : &launch<PERSP, true, false, OTHER, PEEL>;
+  return ao ? &launch<PERSP, false, true, OTHER, PEEL>
+            : &launch<PERSP, false, false, OTHER, PEEL>;
+}
+
+template <bool OTHER, bool PEEL>
+Launch pick(bool perspective, bool shadows, bool ao) {
+  return perspective ? pick<true, OTHER, PEEL>(shadows, ao)
+                     : pick<false, OTHER, PEEL>(shadows, ao);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` over tiles [tile0, tile0 + ntiles) and
 // writes their rows to out[0 .. ntiles); returns cudaGetLastError(), or
-// cudaErrorInvalidValue when nlights is outside [1, MAX_LIGHTS].
+// cudaErrorInvalidValue when nlights is outside [1, MAX_LIGHTS] or a peel
+// launch has n_peel < 1.
 // lparams holds nlights rows of 16 floats (row 0 is read from params);
 // lrec must be 16-byte aligned (M, 8) rows [cu, cv, ck, r, key, alpha, 0, 0];
 // loffs, lcnt and lkmax hold nlights x grid_n^2 cells, light after light.
@@ -777,7 +1095,10 @@ decltype(&launch<true, true, true, true>) pick(bool shadows, bool ao) {
 // (M, 16) rows [p, rad, rgba, axis, typ, alen, 0, 0, 0], tile t's at rows
 // ooffs[t] .. ooffs[t] + ocnt[t] in slot order, and occ the lights' occluder
 // tables (nlights, nocc, 16), rows [p, rad, u0, v0, pad, key, axis, typ,
-// alen, u1, v1, alpha]; nocc = 0 tests no occluder.
+// alen, u1, v1, alpha]; nocc = 0 tests no occluder.  With peel != 0 the
+// frame is peeled n_peel times (n_peel = 1: the one composited peel of
+// peel1); state is null to keep the rays' peel state in shared memory, or a
+// device buffer of ntiles x 8 x S x 256 floats.
 extern "C" int mega_render_launch(const float* params, const float* lparams,
                                   const float* chunks, const float* zmin,
                                   const float* lrec, const int* loffs,
@@ -789,15 +1110,18 @@ extern "C" int mega_render_launch(const float* params, const float* lparams,
                                   unsigned int seed, int grid_n, int nlights,
                                   int nocc, float eps, float inv_s,
                                   int perspective, int shadows, int other,
+                                  int peel, int n_peel, float* state,
                                   void* stream) {
-  if (nlights < 1 || nlights > MAX_LIGHTS || nocc < 0)
+  if (nlights < 1 || nlights > MAX_LIGHTS || nocc < 0 || (peel && n_peel < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ao = nlights > 1, sh = shadows != 0;
-  auto go = other ? (perspective ? pick<true, true>(sh, ao) : pick<false, true>(sh, ao))
-                  : (perspective ? pick<true, false>(sh, ao) : pick<false, false>(sh, ao));
-  go(st, ntiles, tile0, params, lparams, chunks, zmin, lrec, loffs, lcnt,
-     lkmax, orec, ooffs, ocnt, occ, out, nchunks, tiles_x, S, seed, grid_n,
-     nlights, nocc, eps, inv_s);
-  return static_cast<int>(cudaGetLastError());
+  const bool ao = nlights > 1, sh = shadows != 0, pr = perspective != 0;
+  Launch go = other ? (peel ? pick<true, true>(pr, sh, ao)
+                            : pick<true, false>(pr, sh, ao))
+                    : (peel ? pick<false, true>(pr, sh, ao)
+                            : pick<false, false>(pr, sh, ao));
+  return static_cast<int>(go(st, ntiles, tile0, params, lparams, chunks, zmin,
+                             lrec, loffs, lcnt, lkmax, orec, ooffs, ocnt, occ,
+                             out, nchunks, tiles_x, S, seed, grid_n, nlights,
+                             nocc, eps, inv_s, n_peel, state));
 }

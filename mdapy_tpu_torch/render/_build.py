@@ -38,7 +38,8 @@ _MEGA_ARGTYPES = (
     + [_c.c_int] * 5                                   # ntiles, tile0, nchunks, tiles_x, S
     + [_c.c_uint, _c.c_int, _c.c_int, _c.c_int]        # seed, grid_n, nlights, nocc
     + [_c.c_float, _c.c_float]                         # eps, inv_s
-    + [_c.c_int, _c.c_int, _c.c_int, _c.c_void_p]      # perspective, shadows, other, stream
+    + [_c.c_int, _c.c_int, _c.c_int]                   # perspective, shadows, other
+    + [_c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p]   # peel, n_peel, state, stream
 )
 _HIT_ARGTYPES = (
     [_c.c_void_p] * 7                                  # o, d, tcap, zmin, chunks, best_t, rec

@@ -5,7 +5,9 @@ structures built from it.  These converters take the JAX package's Scene,
 ScreenBins and light records (anything ``np.asarray`` accepts) and return
 the port's tensors, so a test can feed *identical* accel inputs to the JAX
 kernel and to the port's kernel path and hold kernel parity apart from
-accel parity.  Nothing here imports jax.
+accel parity.  Every converter takes the target ``device`` as a required
+keyword: "cuda" for the hand kernels, "cpu" for their plain versions.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ __all__ = [
 ]
 
 
-def scene_from_numpy(scene, device="cpu", dtype=torch.float32) -> Scene:
+def scene_from_numpy(scene, *, device, dtype=torch.float32) -> Scene:
     """JAX ``Scene`` -> port ``Scene`` (spheres, cylinders and rings)."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device).to(dtype)
@@ -36,8 +38,8 @@ def scene_from_numpy(scene, device="cpu", dtype=torch.float32) -> Scene:
 
 
 def other_records_from_numpy(other_data, other_count, occ_recs=None,
-                             n_occ: int = 0, extra_occ=(),
-                             device="cpu") -> OtherRecords:
+                             n_occ: int = 0, extra_occ=(), *,
+                             device) -> OtherRecords:
     """JAX ``gather_other_records`` output -> port ``OtherRecords``.
 
     ``other_data`` (nb, 16, KO) holds each tile's first ``other_count[t]``
@@ -66,7 +68,7 @@ def other_records_from_numpy(other_data, other_count, occ_recs=None,
 
 
 def screen_bins_from_numpy(sph_chunks, sph_zmin, tiles_x: int, tiles_y: int,
-                           tile_px: int = 16, device="cpu", cyl=None,
+                           tile_px: int = 16, *, device, cyl=None,
                            ring=None, ncyl: int = 0) -> ScreenBins:
     """JAX ``ScreenBins`` -> port ``ScreenBins``: ``sph_chunks`` and
     ``sph_zmin``, and, when given, the ``cyl`` and ``ring`` ``KindBins``
@@ -102,7 +104,7 @@ def screen_bins_from_numpy(sph_chunks, sph_zmin, tiles_x: int, tiles_y: int,
                       tiles_x, tiles_y, tile_px, *oth)
 
 
-def light_bins_from_numpy(lb, device="cpu") -> LightBins:
+def light_bins_from_numpy(lb, *, device) -> LightBins:
     """JAX ``LightBins`` (its ``sph``, ``cyl`` and ``ring`` ``LightKind``
     cells) -> port ``LightBins``.  The JAX cells are dense (ncells, K) rows
     in ascending key order; the port's are compact CSR in descending order,
@@ -135,7 +137,7 @@ def light_bins_from_numpy(lb, device="cpu") -> LightBins:
         sph.keys, kind(lb.cyl), kind(lb.ring))
 
 
-def light_records_from_numpy(ldata, offs, count, lkmax, device="cpu"):
+def light_records_from_numpy(ldata, offs, count, lkmax, *, device):
     """JAX light records -> port CSR records.
 
     The JAX layout is (8, CAP) rows with each cell's segment padded to a
@@ -157,7 +159,7 @@ def light_records_from_numpy(ldata, offs, count, lkmax, device="cpu"):
             t(count, torch.int32), t(np.asarray(lkmax, np.float32), torch.float32))
 
 
-def extra_lights_from_numpy(extra_lights, device="cpu") -> list:
+def extra_lights_from_numpy(extra_lights, *, device) -> list:
     """JAX ``render_image_mega`` ``extra_lights`` entries
     ``(lrow, ldata, loffs, lcnt, occ[, lkmax])`` -> the port's
     ``stack_lights`` entries ``(lrow, lrec, loffs, lcnt, lkmax)``.

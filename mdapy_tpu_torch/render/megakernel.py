@@ -1,11 +1,11 @@
 """The fused render pass: raygen, closest hit, shading, shadows, AA mean.
 
-Port of the opaque one-shot slice of ``mdapy_tpu/render/megakernel.py`` —
+Port of the one-shot slice of ``mdapy_tpu/render/megakernel.py`` —
 ``build_mega_params`` (:81), ``_hash_jitter`` (:110), the Pallas kernel
 ``_mega_kernel`` (:156) and its host wrapper ``render_image_mega`` (:1852) —
-for opaque spheres, bond and box-edge cylinders and their ring caps, lit by
-the primary directional light and, with ambient occlusion, by the AO sky
-lights that share its traversal (ROADMAP B1a-B1d).
+for spheres, bond and box-edge cylinders and their ring caps, lit by the
+primary directional light and, with ambient occlusion, by the AO sky lights
+that share its traversal, opaque or translucent (ROADMAP B1a-B1e).
 
 Per 16x16 screen tile and per AA sample the pass:
   * generates the ray (perspective or orthographic), jittered by a 32-bit
@@ -30,14 +30,31 @@ Per 16x16 screen tile and per AA sample the pass:
     ``ao_shared`` mode, its default);
   * writes the AA mean as (tiles, 3*256) rows [R | G | B].
 
+Transparency peeling (``n_peel`` > 1, or ``peel1``; ``megakernel.py:
+205-216, 328-406, 1338-1396``): a ray starts with weight W = 1 and colour
+0; each peel traces it, shades the hit with colour c and alpha a (a miss is
+the background at a = 1), adds W a c and multiplies W by 1 - a.  Peel p > 0
+starts from the previous peel's hit point plus eps along the ray (a miss's
+"hit" is its own origin) and runs for a tile only while the largest W over
+all its rays and samples exceeds ``PEEL_SKIP``; with ``n_peel`` > 1 the
+zmin exit adds each ray's camera depth so far (CUMT, the sum of tsafe + eps
+over its peels).  Shadows become transmissions: each occluder multiplies by
+1 - alpha, one at alpha >= ``OPAQUE_ALPHA`` by 0; a cell walk also ends
+once the transmission is at or below ``TRANS_FLOOR`` (where the JAX
+kernel's window sweep goes on multiplying a ray while others of its cell
+still need the window: ROADMAP C7), and the occluder table multiplies every
+lit ray whose transmission is > 0.  The frame is the sum over peels plus
+the residual W times the background, averaged over the samples.  ``peel1``
+is one such peel.
+
 The lights reach the pass as one ``LightStack`` (``stack_lights``): the
 primary light's row comes from ``params``, the sky lights' rows and CSR
 records from ``extra_lights`` entries, with the JAX wrapper's meaning.
 
 ``mega_render`` dispatches on the tensors' device: CUDA tensors go to the
 hand kernel (``csrc/mega_render.cu``), CPU tensors to ``mega_render_plain``,
-the plain torch version of the same computation.  Transparency peeling
-(B1e) and the banded variant (B1f) are not ported yet.
+the plain torch version of the same computation.  The banded variant (B1f)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +83,12 @@ SG = 8                     # AA samples per kernel sample group
 _PLAIN_ELEMS = 1 << 26
 _SHADOW_STEP = 64          # records per step of the plain shadow walk
 MAX_LIGHTS = 64            # lights one launch takes (the kernel's 64-bit mask)
+PEEL_SKIP = 1e-4           # a peel p > 0 runs while a tile's largest W exceeds it
+OPAQUE_ALPHA = 0.99999     # an occluder at or above this alpha blocks fully
+TRANS_FLOOR = 1e-3         # a cell walk ends once the transmission is <= this
+# per-block shared memory the kernel's peel state may take; past it the
+# state goes to a device buffer (mega_render_cuda)
+PEEL_SMEM_BYTES = 160 << 10
 
 # hand-kernel launches since the last reset_launches()
 launches = 0
@@ -275,7 +298,11 @@ def _raygen(p, tiles, S: int, seed: int, tiles_x: int, perspective: bool):
     else:
         o = (dx, dy, dz)
         d = tuple(torch.full_like(dx, 0.0) + p[12 + i] for i in range(3))
+    return o, d, _tcap(p, o, d)
 
+
+def _tcap(p, o, d):
+    """Where each ray leaves the scene AABB (-BIG when it misses the box)."""
     def axis_exit(o1, d1, lo1, hi1):
         invd = 1.0 / torch.where(d1.abs() > 1e-30, d1, torch.full_like(d1, 1e-30))
         t0 = (lo1 - o1) * invd
@@ -287,29 +314,34 @@ def _raygen(p, tiles, S: int, seed: int, tiles_x: int, perspective: bool):
     n2, f2 = axis_exit(o[2], d[2], p[33], p[36])
     tnear = torch.maximum(torch.maximum(n0, n1), n2)
     tfar = torch.minimum(torch.minimum(f0, f1), f2)
-    tcap = torch.where(tfar >= torch.clamp(tnear, min=0.0), tfar,
+    return torch.where(tfar >= torch.clamp(tnear, min=0.0), tfar,
                        torch.full_like(tfar, -BIG))
-    return o, d, tcap
 
 
 def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
-                 perspective: bool):
+                 perspective: bool, cumt=None, reach=None):
     """Front-to-back chunk walk with the per-tile zmin early exit.
 
-    Returns best t (T, R) and the winner's flat slot c*CH + j (-1 on miss);
+    ``perspective`` says every ray starts at the camera, ``o[i][0, 0]``;
+    else each starts at its own origin.  ``cumt`` (T, R), when given, is
+    each ray's camera depth so far, added to its bound in the exit test.
+    ``reach`` (T,) int64, when given, gets the number of chunks each tile
+    walked.  Returns best t (T, R) and the winner's flat slot c*CH + j (-1 on miss);
     ties keep the lowest slot of the earliest chunk."""
     T, R = tcap.shape
     nchunks = chunk_data.shape[1]
     dev = tcap.device
     bt = torch.full((T, R), BIG, dtype=torch.float32, device=dev)
     bidx = torch.full((T, R), -1, dtype=torch.int64, device=dev)
-    needed = tcap.max(dim=1).values
+    needed = (tcap if cumt is None else tcap + cumt).max(dim=1).values
     slots = torch.arange(CH, device=dev)
     for c in range(nchunks):
         act = torch.nonzero(zmin[tiles, c] < needed).flatten()
         if act.numel() == 0:
             break
         _count("sphere", act.numel() * R * CH)
+        if reach is not None:
+            reach[act] = c + 1
         rec = chunk_data[tiles[act], c]                 # (A, 8, CH)
         cx, cy, cz, r = (rec[:, i, None, :] for i in range(4))
         dx, dy, dz = (v[act, :, None] for v in d)
@@ -340,7 +372,10 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
         bt_a = torch.where(better, tmin, bt_a)
         bt[act] = bt_a
         bidx[act] = torch.where(better, c * CH + jmin, bidx[act])
-        needed[act] = torch.minimum(bt_a, tcap[act]).max(dim=1).values
+        bound = torch.minimum(bt_a, tcap[act])
+        if cumt is not None:
+            bound = bound + cumt[act]
+        needed[act] = bound.max(dim=1).values
     return bt, bidx
 
 
@@ -457,7 +492,8 @@ def _cylring_occludes(oc, axis, rr, typ, al, dda, dp, a2, inv_a2, light,
     return occ_c | occ_r
 
 
-def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
+def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float,
+                       trans=None):
     """Occluder-table test toward light row ``lp`` (``megakernel.py:1153-1295``):
     True where a cylinder or ring of ``occ`` (nocc, 16) blocks a hit point
     of ``h`` (three (T, R) tensors) marked in ``test``.
@@ -465,12 +501,17 @@ def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
     For each lane range of ``groups`` and each tile, the (u, v) rectangle
     and least tau of the ``rect`` lanes decide which entries are tried: the
     conservative cull of the JAX kernel, computed as the hand kernel
-    computes it for its sample groups."""
+    computes it for its sample groups.
+
+    With ``trans`` (T, R), the transmissions so far, returns them multiplied
+    by 1 - alpha (0 at alpha >= OPAQUE_ALPHA) of each entry that blocks the
+    point, in ascending entry order, as the kernel multiplies them."""
     hx, hy, hz = h
     T = hx.shape[0]
-    blocked = torch.zeros_like(test)
+    blocked = torch.zeros_like(test) if trans is None else trans.clone()
     if occ.shape[0] == 0 or T == 0:
         return blocked
+    hits = []   # (tile, lane, entry) of each blocking pair, by ray then entry
     lx, ly, lz = lp[0], lp[1], lp[2]
     u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9]
     v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10]
@@ -534,21 +575,47 @@ def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float):
                 (axx[i], axy[i], axz[i]), rad[i], typ[i], alen[i], dda[i],
                 (dpx[i], dpy[i], dpz[i]), a2[i], inv_a2[i], (lx, ly, lz), eps)
             hit = ray[hit_]
-            blocked[rt[hit], rl[hit]] = True
+            if trans is None:
+                blocked[rt[hit], rl[hit]] = True
+            else:
+                hits.append((rt[hit], rl[hit], i[hit_]))
             s0 = s1
+    if trans is None or not hits:
+        return blocked
+    ht, hl, hi = (torch.cat(x) for x in zip(*hits))
+    if ht.numel() == 0:
+        return blocked
+    alpha = occ[hi, 15]
+    fac = torch.where(alpha >= OPAQUE_ALPHA, 0.0, 1.0 - alpha)
+    # each ray's factors one after another: its k-th pair at step k
+    ray = ht * hx.shape[1] + hl
+    first = torch.ones_like(ray, dtype=torch.bool)
+    first[1:] = ray[1:] != ray[:-1]
+    start = torch.nonzero(first).flatten()
+    pos = torch.arange(ray.numel(), device=ray.device) - start[torch.cumsum(
+        first.to(torch.int64), 0) - 1]
+    for k in range(int(pos.max()) + 1):
+        at = pos == k
+        blocked[ht[at], hl[at]] = blocked[ht[at], hl[at]] * fac[at]
     return blocked
 
 
 def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float,
-                    walked=None):
+                    walked=None, trans: bool = False):
     """1.0 where some record of the ray's cell occludes it, else 0.0.
 
     Walks each ray's descending-key records in steps of _SHADOW_STEP; a ray
     retires at its first occluder or once key <= tau + eps.  ``lkmax`` (each
     cell's largest key) spares the walk of a cell that cannot occlude; None
     walks every non-empty cell, to the same result.  ``walked`` (int64, one
-    per ray), when given, gains the number of records each ray's walk read."""
-    blocked = torch.zeros_like(tau)
+    per ray), when given, gains the number of records each ray's walk read.
+
+    With ``trans`` it returns each ray's transmission instead: every
+    occluder multiplies it by 1 - alpha (record row 5; 0 at alpha >=
+    OPAQUE_ALPHA), in record order, and the walk retires at key <= tau + eps
+    or once the transmission is at or below TRANS_FLOOR
+    (``render_common.cuh:walk_cell_trans``)."""
+    out = torch.ones_like(tau) if trans else torch.zeros_like(tau)
     tau_eps = tau + eps
     cnt = lcnt[cell].to(torch.int64)
     off = loffs[cell].to(torch.int64)
@@ -564,29 +631,49 @@ def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float,
         idx = off[active, None] + torch.minimum(kk, cnt[active, None] - 1)
         rec = lrec[idx]                                   # (A, W, 8)
         stop = ~valid | (rec[..., 4] <= tau_eps[active, None])
-        stop = torch.cumsum(stop.to(torch.int32), dim=1) > 0
         du = rec[..., 0] - u[active, None]
         dv = rec[..., 1] - v[active, None]
         sr = rec[..., 3]
         s2 = sr * sr - (du * du + dv * dv)
         q = tau_eps[active, None] - rec[..., 2]
-        occ = (s2 > 0.0) & (sr > 0.0) & ((q < 0.0) | (s2 > q * q)) & ~stop
-        if _work is not None or walked is not None:
-            # records a walk reads: up to its first occluder or its stop
-            read = (~stop & (torch.cumsum(occ, 1) - occ.int() == 0)).sum(dim=1)
+        occ = (s2 > 0.0) & (sr > 0.0) & ((q < 0.0) | (s2 > q * q))
+        read = None
+        if trans:
+            alpha = rec[..., 5]
+            fac = torch.where(alpha >= OPAQUE_ALPHA, 0.0, 1.0 - alpha)
+            tr = out[active]
+            retire = torch.zeros_like(tr, dtype=torch.bool)
+            read = torch.zeros_like(active)
+            # one record after another, so the products round as the kernel's
+            for j in range(_SHADOW_STEP):
+                go = ~retire & ~stop[:, j]
+                read += go
+                tr = torch.where(go & occ[:, j], tr * fac[:, j], tr)
+                retire = retire | stop[:, j] | (tr <= TRANS_FLOOR)
+            out[active] = tr
+        else:
+            stop = torch.cumsum(stop.to(torch.int32), dim=1) > 0
+            occ = occ & ~stop
+            if _work is not None or walked is not None:
+                # records a walk reads: up to its first occluder or its stop
+                read = (~stop & (torch.cumsum(occ, 1) - occ.int() == 0)).sum(dim=1)
+            hit = occ.any(dim=1)
+            out[active[hit]] = 1.0
+            retire = hit | stop[:, -1]
+        if read is not None:
             _count("record", read.sum())
             if walked is not None:
                 walked[active] += read
-        hit = occ.any(dim=1)
-        blocked[active[hit]] = 1.0
-        active = active[~hit & ~stop[:, -1]]
+        active = active[~retire]
         k0 += _SHADOW_STEP
-    return blocked
+    return out
 
 
-def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps):
+def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps,
+                   trans: bool = False):
     """Shadow test of the hit points ``h[i].flatten()[sel]`` toward light
-    ``l`` (row ``lp``): 1.0 where an occluder blocks the point, else 0.0."""
+    ``l`` (row ``lp``): 1.0 where an occluder blocks the point, else 0.0;
+    with ``trans``, each point's transmission."""
     hx, hy, hz = (x.flatten()[sel] for x in h)
     u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9]
     v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10]
@@ -596,16 +683,21 @@ def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps):
     cell = (gy * grid_n + gx).to(torch.int64) + l * grid_n * grid_n
     return _shadow_blocked(lights.lrec, lights.loffs.view(-1),
                            lights.lcnt.view(-1), lights.lkmax.view(-1),
-                           u, v, tau, cell, eps)
+                           u, v, tau, cell, eps, trans=trans)
 
 
-def _render_batch(chunk_data, zmin, lights, other, p, tiles, *,
-                  S, seed, tiles_x, grid_n, eps, perspective, shadows, inv_s):
-    o, d, tcap = _raygen(p, tiles, S, seed, tiles_x, perspective)
-    bt, bidx = _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps,
-                            perspective)
+def _surfaces(chunk_data, zmin, lights, other, p, tiles, o, d, tcap, cumt,
+              *, S, grid_n, eps, camo, shadows, trans, reach=None):
+    """One trace of the rays (T, R) from ``o`` along ``d``: closest hit,
+    surface and the lights' sum of lit * n.L * lightcol * filter, the filter
+    a transmission with ``trans`` and 0 or 1 without.  ``camo`` says every
+    ray starts at the camera; ``reach`` as ``_closest_hit``'s.  Returns
+    (rec (T, R, 8): the winner's record rows [centre, r, rgba], missed,
+    tsafe, hit point, the sum)."""
+    bt, bidx = _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps, camo,
+                            cumt=cumt, reach=reach)
     if other is not None:
-        bt, widx = _closest_hit_other(other, tiles, o, d, bt, eps, perspective)
+        bt, widx = _closest_hit_other(other, tiles, o, d, bt, eps, camo)
     T, R = bt.shape
     hit = bidx >= 0
     c = bidx.clamp(min=0) // CH
@@ -640,7 +732,20 @@ def _render_batch(chunk_data, zmin, lights, other, p, tiles, *,
     ngroups = -(-S // SG)
     groups = [(g * S // ngroups * P, (g + 1) * S // ngroups * P)
               for g in range(ngroups)]
-    # per light, in light order: sh += lit * (n.L) * lightcol * (1 - blocked)
+
+    def table(l, lp, hh, lit, filt, groups):
+        """The occluder table of light l on the points its walk left
+        unblocked (opaque) or with transmission > 0."""
+        if occ is None:
+            return filt
+        if trans:
+            return _occluders_blocked(occ[l], lp, hh, lit, lit & (filt > 0.0),
+                                      groups, eps, trans=filt)
+        return torch.where(
+            _occluders_blocked(occ[l], lp, hh, lit, lit & (filt > 0.0), groups,
+                               eps), 0.0, filt)
+
+    # per light, in light order: sh += lit * (n.L) * lightcol * filter
     sh = None
     for l in range(lights.lparams.shape[0] if lights is not None else 1):
         lp = p[15:27] if l == 0 else lights.lparams[l]
@@ -652,48 +757,102 @@ def _render_batch(chunk_data, zmin, lights, other, p, tiles, *,
         if shadows and l == 0:
             # the primary light: every sample's own hit point
             sel = torch.nonzero(litb.flatten()).flatten()
-            blocked = _light_blocked(lights, lp, l, h, sel, grid_n=grid_n,
-                                     eps=eps)
-            filt = filt.flatten().index_put((sel,), 1.0 - blocked).view(T, R)
-            if occ is not None:
-                # points the cell walk left clear, against the occluder
-                # table, culled per tile and sample group
-                clear = litb & (filt > 0.0)
-                filt = torch.where(
-                    _occluders_blocked(occ[l], lp, h, litb, clear, groups, eps),
-                    0.0, filt)
+            _count("lit", sel.numel())
+            res = _light_blocked(lights, lp, l, h, sel, grid_n=grid_n,
+                                 eps=eps, trans=trans)
+            filt = filt.flatten().index_put(
+                (sel,), res if trans else 1.0 - res).view(T, R)
+            filt = table(l, lp, h, litb, filt, groups)
         elif shadows:
             # a sky light: sample 0's hit point, shared by every sample
             h0 = [x[:, :P] for x in h]
             sel = torch.nonzero(litb[:, :P].flatten()).flatten()
-            blocked = _light_blocked(lights, lp, l, h0, sel, grid_n=grid_n,
-                                     eps=eps)
+            res = _light_blocked(lights, lp, l, h0, sel, grid_n=grid_n,
+                                 eps=eps, trans=trans)
             filt0 = torch.ones((T * P,), dtype=torch.float32, device=p.device)
-            filt0 = filt0.index_put((sel,), 1.0 - blocked).view(T, P)
-            if occ is not None:
-                lit0 = litb[:, :P]
-                clear = lit0 & (filt0 > 0.0)
-                filt0 = torch.where(
-                    _occluders_blocked(occ[l], lp, h0, lit0, clear, [(0, P)],
-                                       eps),
-                    0.0, filt0)
+            filt0 = filt0.index_put((sel,), res if trans else 1.0 - res)
+            filt0 = table(l, lp, h0, litb[:, :P], filt0.view(T, P), [(0, P)])
             filt = filt0.repeat(1, S)
         term = lit * inten * lightcol * filt
         sh = term if sh is None else sh + term
-    shade = 0.8 * sh + p[38]
-    out = []
-    for ch in range(3):
-        col = torch.where(missed, p[28 + ch], rec[..., 4 + ch] * shade)
-        col = col.view(T, S, P)
-        acc = torch.zeros((T, P), dtype=torch.float32, device=col.device)
-        for s in range(S):
-            acc = acc + col[:, s]
-        out.append(acc * inv_s)
-    out = torch.cat(out, dim=1)                              # (T, 3*P)
+    return rec, missed, tsafe, h, sh
+
+
+def _render_batch(chunk_data, zmin, lights, other, p, tiles, *,
+                  S, seed, tiles_x, grid_n, eps, perspective, shadows, inv_s,
+                  n_peel, peel1):
+    o, d, tcap = _raygen(p, tiles, S, seed, tiles_x, perspective)
+    T, R = tcap.shape
+    kw = dict(S=S, grid_n=grid_n, eps=eps, shadows=shadows)
     # tiles with no candidate at all are background, as the kernel writes them
     dead = ~(zmin[tiles, 0] < BIG_DEPTH)
     if other is not None:
         dead = dead & (other.ocnt[tiles] == 0)
+    # while counting: the chunks each tile reads, the deepest walk of its
+    # peels ("chunk"), and the live tiles that run each peel ("peel<p>")
+    reach = (torch.zeros(T, dtype=torch.int64, device=p.device)
+             if _work is not None else None)
+    if not (n_peel > 1 or peel1):
+        rec, missed, _, _, sh = _surfaces(
+            chunk_data, zmin, lights, other, p, tiles, o, d, tcap, None,
+            camo=perspective, trans=False, reach=reach, **kw)
+        shade = 0.8 * sh + p[38]
+        cols = [torch.where(missed, p[28 + ch], rec[..., 4 + ch] * shade)
+                for ch in range(3)]
+        resid = None
+    else:
+        # peels: every ray's weight, colour sums, last hit and camera depth
+        multi = n_peel > 1
+        w = torch.ones((T, R), dtype=torch.float32, device=p.device)
+        cols = [torch.zeros_like(w) for _ in range(3)]
+        hit = [x.clone() for x in o]
+        cumt = torch.zeros_like(w) if multi else None
+        act = torch.arange(T, device=p.device)
+        for peel in range(n_peel):
+            if peel:
+                # a later peel runs for the tiles whose largest W is > PEEL_SKIP
+                act = act[w[act].amax(dim=1) > PEEL_SKIP]
+                if act.numel() == 0:
+                    break
+            _count(f"peel{peel}", (~dead[act]).sum())
+            da = tuple(x[act] for x in d)
+            if peel:
+                oa = tuple(hit[i][act] + eps * da[i] for i in range(3))
+                ta = _tcap(p, oa, da)
+            else:
+                oa, ta = o, tcap
+            ra = None if reach is None else torch.zeros_like(act)
+            rec, missed, tsafe, h, sh = _surfaces(
+                chunk_data, zmin, lights, other, p, tiles[act], oa, da, ta,
+                cumt[act] if multi else None,
+                camo=perspective and not multi, trans=True, reach=ra, **kw)
+            if reach is not None:
+                reach[act] = torch.maximum(reach[act], ra)
+            if multi:
+                cumt[act] = cumt[act] + tsafe + eps
+            shade = 0.8 * sh + p[38]
+            a = torch.where(missed, 1.0, rec[..., 7])
+            wa = w[act]
+            for ch in range(3):
+                c = torch.where(missed, p[28 + ch], rec[..., 4 + ch] * shade)
+                cols[ch][act] = cols[ch][act] + wa * a * c
+            w[act] = wa * (1.0 - a)
+            for i in range(3):
+                hit[i][act] = h[i]
+        resid = w.view(T, S, P)
+    if reach is not None:
+        _count("chunk", reach.sum())
+    out = []
+    for ch in range(3):
+        col = cols[ch].view(T, S, P)
+        acc = torch.zeros((T, P), dtype=torch.float32, device=col.device)
+        for s in range(S):
+            acc = acc + col[:, s]
+            if resid is not None:
+                # the residual weight sees the background
+                acc = acc + resid[:, s] * p[28 + ch]
+        out.append(acc * inv_s)
+    out = torch.cat(out, dim=1)                              # (T, 3*P)
     bg = torch.repeat_interleave(p[28:31], P)
     return torch.where(dead[:, None], bg[None, :], out)
 
@@ -729,16 +888,27 @@ def _nocc(other, nl: int, shadows: bool) -> int:
     return other.occ.shape[1]
 
 
+def _check_peel(n_peel: int, peel1: bool) -> None:
+    if n_peel < 1:
+        raise ValueError(f"n_peel must be >= 1, got {n_peel}")
+    if peel1 and n_peel != 1:
+        raise ValueError(f"peel1 is one peel; n_peel must be 1, got {n_peel}")
+
+
 def mega_render_plain(chunk_data, zmin, lights, params, seed, *, S: int,
                       tiles_x: int, grid_n: int, eps: float, perspective: bool,
-                      shadows: bool, tiles=None, other=None) -> torch.Tensor:
+                      shadows: bool, tiles=None, other=None, n_peel: int = 1,
+                      peel1: bool = False) -> torch.Tensor:
     """Plain torch version of the kernel: (ntiles, 3*256) f32 [R|G|B] rows
     for the tiles in ``tiles`` = (first, end), all tiles by default.
 
     ``lights`` is a ``LightStack`` (None: the primary light alone, without
     shadows); ``other`` the cylinders and rings (``OtherRecords``) or None.
-    Runs on the inputs' device; tiles go through in batches that keep each
-    (tiles, rays, CH) temporary within _PLAIN_ELEMS elements."""
+    ``n_peel`` > 1 peels up to that many layers, ``peel1`` composites one;
+    either turns transparency on (the module docstring).  Runs on the
+    inputs' device; tiles go through in batches that keep each (tiles,
+    rays, CH) temporary within _PLAIN_ELEMS elements."""
+    _check_peel(n_peel, peel1)
     _nocc(other, _nlights(lights, shadows), shadows)
     nb, nchunks, _, ch = chunk_data.shape
     lo, hi = _tile_range(tiles, nb)
@@ -753,6 +923,7 @@ def mega_render_plain(chunk_data, zmin, lights, params, seed, *, S: int,
             chunk_data, zmin, lights, other, p, tiles,
             S=S, seed=seed, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
             perspective=perspective, shadows=shadows, inv_s=inv_s,
+            n_peel=n_peel, peel1=peel1,
         )
     return out
 
@@ -774,12 +945,20 @@ def _check(t, name, dtype, ndim, device):
 
 def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
                      tiles_x: int, grid_n: int, eps: float, perspective: bool,
-                     shadows: bool, tiles=None, other=None) -> torch.Tensor:
+                     shadows: bool, tiles=None, other=None, n_peel: int = 1,
+                     peel1: bool = False) -> torch.Tensor:
     """Launch the hand kernel on CUDA tensors: (ntiles, 3*256) f32 rows
-    for the tiles in ``tiles`` = (first, end), all tiles by default."""
+    for the tiles in ``tiles`` = (first, end), all tiles by default.
+
+    With peeling the kernel keeps 8 floats a sample and pixel (origin, W,
+    colour sums, camera depth) across its peels, in shared memory while
+    that fits ``PEEL_SMEM_BYTES``; past it in a device buffer, with the
+    tiles launched in batches whose buffer stays within 256 MiB."""
     from ._build import load_mega_render
 
     global launches
+    _check_peel(n_peel, peel1)
+    peel = n_peel > 1 or peel1
     dev = chunk_data.device
     if dev.type != "cuda":
         raise ValueError(f"mega_render_cuda needs CUDA tensors, got {dev}")
@@ -850,21 +1029,31 @@ def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
         return out
     lib = load_mega_render()
     ptr = ctypes.c_void_p
+    batch, state = hi - lo, None
+    if peel and 4 * (8 + (nl - 1) * P + 8 * S * P) > PEEL_SMEM_BYTES:
+        batch = max(1, (256 << 20) // (4 * 8 * S * P))
+        state = torch.empty((min(batch, hi - lo), 8 * S * P), dtype=f32,
+                            device=dev)
     with torch.cuda.device(dev):   # the launch goes to the tensors' card
-        rc = lib.mega_render_launch(
-            ptr(p.data_ptr()), ptr(lparams.data_ptr()),
-            ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
-            ptr(lrec.data_ptr()), ptr(loffs.data_ptr()), ptr(lcnt.data_ptr()),
-            ptr(lkmax.data_ptr()), ptr(orec.data_ptr()), ptr(ooffs.data_ptr()),
-            ptr(ocnt.data_ptr()), ptr(occ.data_ptr()), ptr(out.data_ptr()),
-            hi - lo, lo, nchunks, tiles_x, S, int(seed) & 0xFFFFFFFF, grid_n,
-            nl, nocc, eps, float(np.float32(1.0 / S)), int(bool(perspective)),
-            int(bool(shadows)), int(other is not None),
-            ptr(torch.cuda.current_stream(dev).cuda_stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"mega_render kernel launch failed: CUDA error {rc}")
-    launches += 1
+        for t0 in range(lo, hi, batch):
+            rc = lib.mega_render_launch(
+                ptr(p.data_ptr()), ptr(lparams.data_ptr()),
+                ptr(chunk_data.data_ptr()), ptr(zmin.data_ptr()),
+                ptr(lrec.data_ptr()), ptr(loffs.data_ptr()),
+                ptr(lcnt.data_ptr()), ptr(lkmax.data_ptr()),
+                ptr(orec.data_ptr()), ptr(ooffs.data_ptr()),
+                ptr(ocnt.data_ptr()), ptr(occ.data_ptr()),
+                ptr(out[t0 - lo:].data_ptr()), min(batch, hi - t0), t0,
+                nchunks, tiles_x, S, int(seed) & 0xFFFFFFFF, grid_n, nl, nocc,
+                eps, float(np.float32(1.0 / S)), int(bool(perspective)),
+                int(bool(shadows)), int(other is not None), int(peel), n_peel,
+                ptr(None if state is None else state.data_ptr()),
+                ptr(torch.cuda.current_stream(dev).cuda_stream),
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"mega_render kernel launch failed: CUDA error {rc}")
+            launches += 1
     return out
 
 
@@ -874,7 +1063,10 @@ def count_work(fn, *args, **kwargs) -> dict:
     in the chunks the early exit left), "cylring" (ray x tile cyl/ring
     record), "record" (shadow records the cell walks read up to their first
     occluder or stop), "cull" (occluder-table entries culled per tile and
-    sample group) and "occluder" (ray x entry that passed the cull)."""
+    sample group) and "occluder" (ray x entry that passed the cull); and
+    from ``mega_render_plain`` the counts "chunk" (candidate chunks a tile
+    reads: its deepest walk over its peels), "lit" (primary-light walks)
+    and "peel<p>" (live tiles that run peel p)."""
     global _work
     _work = {}
     try:
@@ -902,14 +1094,16 @@ def render_image_mega(chunk_data, zmin, lights, params, seed, *, S: int,
                       width: int, height: int, tiles_x: int, tiles_y: int,
                       grid_n: int, eps: float, perspective: bool,
                       shadows: bool, quantized: bool = False,
-                      other=None) -> torch.Tensor:
+                      other=None, n_peel: int = 1,
+                      peel1: bool = False) -> torch.Tensor:
     """Full-frame render -> (height, width, 3) f32 RGB, or uint8 (rounded)
     when ``quantized`` (the device serving path).
 
     ``chunk_data`` / ``zmin`` come from ``gather_chunk_data`` and
     ``build_screen_bins``; ``lights`` from ``stack_lights`` (None: no
     shadows, primary light only); ``other`` holds the cylinders and rings
-    (``OtherRecords``, with one occluder table per light), or None."""
+    (``OtherRecords``, with one occluder table per light), or None.
+    ``n_peel`` > 1 or ``peel1`` turns transparency peeling on."""
     nb = chunk_data.shape[0]
     if nb != tiles_x * tiles_y:
         raise ValueError(f"{nb} tiles given for a {tiles_x}x{tiles_y} grid")
@@ -917,6 +1111,7 @@ def render_image_mega(chunk_data, zmin, lights, params, seed, *, S: int,
         chunk_data, zmin, lights, params, seed,
         S=S, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
         perspective=perspective, shadows=shadows, other=other,
+        n_peel=n_peel, peel1=peel1,
     )
     img = out.view(tiles_y, tiles_x, 3, TILE_PX, TILE_PX)
     img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * TILE_PX,

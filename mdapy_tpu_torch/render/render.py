@@ -1,10 +1,10 @@
 """TachyonRender — user-facing renderer front end on PyTorch.
 
 Port of ``mdapy_tpu/render/render.py`` (``TachyonRender`` :75, ``render``
-:164, ``render_system`` :774, ``_default_colors`` :54) for opaque scenes:
-spheres, bond and box-edge cylinders with their ring caps, one directional
-light with shadows, AA, and the fast ambient occlusion of scenes above
-``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
+:164, ``render_system`` :774, ``_default_colors`` :54): spheres, bond and
+box-edge cylinders with their ring caps, opaque or translucent, one
+directional light with shadows, AA, and the fast ambient occlusion of scenes
+above ``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
 acceleration builds as torch ops on the card and the frame through the hand
 CUDA kernels; ``backend="cpu"`` runs the same builds on the CPU and the
 kernels' plain torch versions, in float32.
@@ -18,6 +18,11 @@ closest-hit kernel, dense cylinder/ring merge, light-grid shadow pass over
 all three kinds); and for a scene with cylinders or rings but no live sphere
 ``tracer_tiled.render_image_tiled``.
 
+Transparency (``render.py:237-240, 642-645``): any alpha < 1 on an atom,
+a bond colour or the box colour turns it on for the frame, and the
+megakernel peels up to ``max_trans`` (4) layers, or composites one
+(``peel1``) when ``max_trans`` is 1.
+
 Fast AO (``render.py:551-637``): 2*K2 directional sky lights, K2 =
 ao_samples // 2 Fibonacci hemisphere directions and their opposites, each
 with its own light-grid CSR records and cylinder/ring occluder table, join
@@ -27,11 +32,10 @@ so a camera move reuses them.
 
 What the port does not cover raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: AO on scenes of at most
-``AO_EXACT_MAX_SPHERES`` padded spheres, and AO on a scene that leaves the
-megakernel (past its cylinder and ring limits, or without a live sphere),
-both of which take the exact AO tracer in the JAX renderer (A6); alpha < 1
-on atoms, bonds or the box (B1e); and candidate records past the memory
-budget (B1f).
+``AO_EXACT_MAX_SPHERES`` padded spheres, and AO or transparency on a scene
+that leaves the megakernel (past its cylinder and ring limits, or without a
+live sphere), all of which take the exact tracer in the JAX renderer (A6);
+and candidate records past the memory budget (B1f).
 """
 
 from __future__ import annotations
@@ -252,14 +256,11 @@ class TachyonRender:
                 bond_colors = np.tile(np.array(
                     [bc[0], bc[1], bc[2], bc[3] if len(bc) > 3 else 1.0],
                     dtype=np.float32), (bonds.shape[0], 1))
-            if (bool(np.any(colors[:, 3] < 1.0))
-                    or (bond_colors is not None
-                        and bool(np.any(np.asarray(bond_colors)[:, 3] < 1.0)))
-                    or (len(box_color) > 3 and box_color[3] < 1.0)):
-                raise NotImplementedError(
-                    "transparent atoms, bonds or box edges (alpha < 1) are "
-                    "not ported yet (ROADMAP B1e)"
-                )
+            # any alpha < 1 turns transparency peeling on (render.py:237-240)
+            alpha = (bool(np.any(colors[:, 3] < 1.0))
+                     or (bond_colors is not None
+                         and bool(np.any(np.asarray(bond_colors)[:, 3] < 1.0)))
+                     or (len(box_color) > 3 and box_color[3] < 1.0))
             scene = build_scene(
                 positions, colors, radii, bond_edges=bonds,
                 bond_colors=bond_colors, bond_radius=bond_radius,
@@ -270,7 +271,7 @@ class TachyonRender:
                           + (scene.ring_rout > 0).sum())
             n_sph = int((scene.sph_radius > 0).sum())
             table = other_table(scene) if n_other else None
-            self._scene = (scene, lo, hi, table, n_other, n_sph)
+            self._scene = (scene, lo, hi, table, n_other, n_sph, alpha)
             self._scene_key = key
             self._accel_key = self._accel = None
         self._input_refs = (arrays, geom)
@@ -288,14 +289,14 @@ class TachyonRender:
             self._ao_key = scene_key
         return self._ao
 
-    def _route(self, bins, n_other: int, n_sph: int) -> str:
+    def _route(self, bins, n_other: int, n_sph: int, alpha: bool) -> str:
         """The renderer a frame takes, as the JAX renderer picks it
         (render.py:391-445, 690-750): "mega" (the one-shot megakernel),
         "pallas" (``render_image_pallas``, past the megakernel's limits for
         cylinders and rings) or "tiled" (``render_image_tiled``, a scene of
-        cylinders and rings without a live sphere).  With AO the last two
-        are the exact AO tracer in the JAX renderer, which is not ported
-        (ROADMAP A6): that raises."""
+        cylinders and rings without a live sphere).  With AO or a
+        translucent scene (``alpha``) the last two are the exact tracer in
+        the JAX renderer, which is not ported (ROADMAP A6): that raises."""
         cfg = self._cfg
         if not n_other:
             return "mega"
@@ -314,6 +315,11 @@ class TachyonRender:
             raise NotImplementedError(
                 f"{why} takes, in the JAX renderer, the exact AO tracer, "
                 "which is not ported yet (ROADMAP A6); pass ao=False")
+        if alpha:
+            raise NotImplementedError(
+                f"a translucent scene (alpha < 1) with {why} takes, in the JAX "
+                "renderer, the exact tracer, which is not ported yet (ROADMAP "
+                "A6)")
         return "pallas" if n_sph else "tiled"
 
     def _accel_for(self, scene_key, scene_entry, camera, width, height, radii):
@@ -326,11 +332,11 @@ class TachyonRender:
         key = (scene_key, repr((camera.__dict__, width, height)))
         if key == self._accel_key:
             return self._route_name, self._accel, self._other
-        scene, lo, hi, table, n_other, n_sph = scene_entry
+        scene, lo, hi, table, n_other, n_sph, alpha = scene_entry
         cfg = self._cfg
         frame = camera_frame(camera, width, height)
         bins = build_screen_bins(scene, frame, width, height, TILE_PX)
-        route = self._route(bins, n_other, n_sph)
+        route = self._route(bins, n_other, n_sph, alpha)
         nb, nchunks, ch = bins.sph_chunks.shape
         rec_bytes = nb * nchunks * ch * 32
         if rec_bytes > RECORD_BUDGET_BYTES:
@@ -463,13 +469,17 @@ class TachyonRender:
         if route == "mega":
             frame, bins, chunk_data, lights, params = accel
             S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
+            # a translucent frame peels max_trans layers, or composites one
+            # when that is 1 (render.py:642-645)
+            peel1 = entry[6] and cfg.max_trans == 1
+            n_peel = cfg.max_trans if entry[6] and not peel1 else 1
             img_f = render_image_mega(
                 chunk_data, bins.sph_zmin, lights, params, self._seed,
                 S=S, width=int(width), height=int(height),
                 tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
                 eps=cfg.eps, perspective=bool(frame["perspective"]),
                 shadows=lights is not None, quantized=device_output,
-                other=other,
+                other=other, n_peel=n_peel, peel1=peel1,
             )
         else:
             img_f = self._render_tiled(route, accel, other, int(width),

@@ -61,12 +61,19 @@ def build_scene(
     box_color=(1.0, 1.0, 1.0, 1.0),
     dtype: torch.dtype = torch.float32,
     pad: int = 256,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """One sphere per particle with alpha > 0 (tachyon_render.h:302-305), an
     fcylinder plus two ring caps per bond or box edge (caps at both ends,
     normals along -axis and +axis); z-flipped and padded to a multiple of
-    ``pad``."""
+    ``pad``, on ``device``: the card unless the caller asks for the CPU
+    (``device="cpu"``), whose tensors take the kernels' plain versions."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_scene(device='cuda') needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to build "
+            "the scene for the plain torch versions on the CPU")
     positions = np.asarray(positions, dtype=np.float64) * FLIP
     colors = np.asarray(colors, dtype=np.float64)
     radii = np.asarray(radii, dtype=np.float64)

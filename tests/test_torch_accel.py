@@ -43,7 +43,7 @@ def _both(preset="perspective"):
     cam = jpreset_camera(preset, pos, max_radius=float(radii.max()))
     jscene = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
                           jbuild_scene(pos, colors, radii, dtype=np.float32))
-    tscene = build_scene(pos, colors, radii)
+    tscene = build_scene(pos, colors, radii, device="cpu")
     frame = jcamera_frame(cam, W, H)
     return pos, cam, jscene, tscene, frame
 
@@ -56,7 +56,7 @@ def _tile_sets(cand):
 def test_scene_and_camera_frame_match(preset):
     pos, colors, radii = _fcc_scene()
     jscene = jbuild_scene(pos, colors, radii, dtype=np.float32)
-    tscene = build_scene(pos, colors, radii)
+    tscene = build_scene(pos, colors, radii, device="cpu")
     for name in ("sph_center", "sph_radius", "sph_color"):
         np.testing.assert_allclose(getattr(tscene, name).numpy(),
                                    np.asarray(getattr(jscene, name)), atol=1e-6)
@@ -147,7 +147,7 @@ def test_gather_chunk_data_matches():
     jb = jaccel.build_screen_bins(jscene, frame, W, H)
     ref = np.asarray(jgather(jb.sph_chunks, jscene.sph_center,
                              jscene.sph_radius, jscene.sph_color))
-    s = scene_from_numpy(jscene)
+    s = scene_from_numpy(jscene, device="cpu")
     out = gather_chunk_data(torch.as_tensor(np.asarray(jb.sph_chunks, np.int64)),
                             s.sph_center, s.sph_radius, s.sph_color)
     assert out.dtype == torch.float32 and out.shape == ref.shape
@@ -173,7 +173,7 @@ def test_screen_bins_exact_power_of_two_total():
                        position=(width / 2.0, height / 2.0, 100.0),
                        direction=(0.0, 0.0, -1.0), up=(0.0, 1.0, 0.0))
     frame = camera_frame(cam, width, height)
-    tscene = build_scene(pos, colors, radii)
+    tscene = build_scene(pos, colors, radii, device="cpu")
     assert tscene.sph_center.shape[0] == 512           # 246 padded slots
     tb = taccel.build_screen_bins(tscene, frame, width, height)
 

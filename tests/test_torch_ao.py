@@ -126,11 +126,12 @@ def test_ao_kernel_slice_matches_interpret(preset, aa, shadows):
         extra_lights=extra, ao_shared=True, interpret=True, **kw))
 
     tb = screen_bins_from_numpy(bins.sph_chunks, bins.sph_zmin, bins.tiles_x,
-                                bins.tiles_y)
-    primary = (light_records_from_numpy(*lr0) if shadows
+                                bins.tiles_y, device="cpu")
+    primary = (light_records_from_numpy(*lr0, device="cpu") if shadows
                else (None, None, None, None))
     lights = tmega.stack_lights(params, *primary,
-                                extra_lights=extra_lights_from_numpy(extra),
+                                extra_lights=extra_lights_from_numpy(
+                                    extra, device="cpu"),
                                 grid_n=GRID)
     assert lights.lparams.shape == (5, 16) and lights.loffs.shape == (5, ncl)
     before = tmega.launches
@@ -157,7 +158,7 @@ def test_ao_light_records_match(k):
     ao_samples=12, upward and downward."""
     pos, colors, radii = _fcc_scene()
     jscene = _jscene(pos, colors, radii)
-    tscene = build_scene(pos, colors, radii)
+    tscene = build_scene(pos, colors, radii, device="cpu")
     dk = _sky_dirs(12)[k]
     jlb = jaccel.build_light_bins(jscene, np.asarray(dk, np.float32), grid=GRID)
     tlb = taccel.build_light_bins(tscene, dk, grid=GRID)
@@ -174,7 +175,7 @@ def test_ao_light_records_match(k):
         assert set(tlb.ids[o:o + n].tolist()) == set(jcand[c, :jcount[c]].tolist())
 
     jrec, joffs, jcnt, jkmax = light_records_from_numpy(
-        *jaccel.build_light_records(jlb, jscene))
+        *jaccel.build_light_records(jlb, jscene), device="cpu")
     trec, toffs, tcnt, tkmax = taccel.build_light_records(tlb, tscene)
     np.testing.assert_array_equal(tcnt.numpy(), jcnt.numpy())
     np.testing.assert_array_equal(toffs.numpy(), joffs.numpy())
@@ -243,7 +244,7 @@ def test_ao_render_matches_jax_renderer(monkeypatch):
     frame, _, _, lights, params = ren._accel
     cfg = RenderConfig(ao_samples=12, ao_enabled=True, aa_enabled=False,
                        background=(1.0, 1.0, 1.0))
-    lb = taccel.build_light_bins(build_scene(pos, colors, radii),
+    lb = taccel.build_light_bins(build_scene(pos, colors, radii, device="cpu"),
                                  frame["light_dir"], grid=GRID)
     jp = jmega.build_mega_params(frame, lb, np.zeros(3), np.ones(3), cfg)
     tp = tmega.build_mega_params(frame, lb, np.zeros(3), np.ones(3), ren._cfg)

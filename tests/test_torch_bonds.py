@@ -74,7 +74,7 @@ def _scenes(pos, colors, radii, bonds, box, bond_colors=None):
               box_edges=box, box_edge_radius=0.1)
     jscene = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
                           jbuild_scene(pos, colors, radii, dtype=np.float32, **kw))
-    return jscene, build_scene(pos, colors, radii, **kw)
+    return jscene, build_scene(pos, colors, radii, **kw, device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["uniform", "atom"])
@@ -155,14 +155,15 @@ def test_scene_bins_and_records_match(preset):
     L = np.asarray(frame["light_dir"], np.float32)
     jlb = jaccel.build_light_bins(jscene, L, grid=GRID)
     tlb = taccel.build_light_bins(tscene, L, grid=GRID)
-    sph_only = taccel.build_light_bins(build_scene(pos, colors, radii), L, grid=GRID)
+    sph_only = taccel.build_light_bins(
+        build_scene(pos, colors, radii, device="cpu"), L, grid=GRID)
     assert not torch.allclose(sph_only.org, tlb.org)
     for name in ("L", "e1", "e2", "org"):
         np.testing.assert_allclose(getattr(tlb, name).numpy(),
                                    np.asarray(getattr(jlb, name)), atol=1e-5)
     np.testing.assert_allclose(float(tlb.inv_cell), float(jlb.inv_cell), rtol=1e-6)
     jrec, joffs, jcnt, jkmax = light_records_from_numpy(
-        *jaccel.build_light_records(jlb, jscene))
+        *jaccel.build_light_records(jlb, jscene), device="cpu")
     trec, toffs, tcnt, tkmax = taccel.build_light_records(tlb, tscene)
     np.testing.assert_array_equal(tcnt.numpy(), jcnt.numpy())
     np.testing.assert_array_equal(toffs.numpy(), joffs.numpy())
@@ -179,7 +180,7 @@ def test_scene_bins_and_records_match(preset):
     table = taccel.other_table(tscene)
     orec, ooffs, ocnt = taccel.gather_other_records(tb, table)
     np.testing.assert_array_equal(ocnt.numpy(), np.asarray(jo[1]))
-    want = other_records_from_numpy(jo[0], jo[1])
+    want = other_records_from_numpy(jo[0], jo[1], device="cpu")
     np.testing.assert_array_equal(ooffs.numpy(), want.ooffs.numpy())
     np.testing.assert_allclose(orec.numpy(), want.orec.numpy(), rtol=1e-6, atol=1e-6)
     occ = taccel.occluder_records(table, tlb)
@@ -255,15 +256,17 @@ def test_bond_kernel_slice_matches_interpret(preset, aa, shadows, ao):
         interpret=True, **kw))
 
     tb = screen_bins_from_numpy(bins.sph_chunks, bins.sph_zmin, bins.tiles_x,
-                                bins.tiles_y)
+                                bins.tiles_y, device="cpu")
     lights = None
     if kw["shadows"]:
-        primary = (light_records_from_numpy(*lr) if shadows
+        primary = (light_records_from_numpy(*lr, device="cpu") if shadows
                    else (None,) * 4)
         lights = tmega.stack_lights(params, *primary,
-                                    extra_lights=extra_lights_from_numpy(extra),
+                                    extra_lights=extra_lights_from_numpy(
+                                        extra, device="cpu"),
                                     grid_n=GRID)
-    other = other_records_from_numpy(*orec, extra_occ=[e[4] for e in extra])
+    other = other_records_from_numpy(*orec, extra_occ=[e[4] for e in extra],
+                                     device="cpu")
     assert (other.occ.shape == (1 + len(extra), orec[3], 16)
             and orec[3] > 200)
     before = tmega.launches

@@ -98,9 +98,9 @@ def test_kernel_slice_matches_interpret(preset, aa, shadows):
         interpret=True, **kw))
 
     tb = screen_bins_from_numpy(bins.sph_chunks, bins.sph_zmin, bins.tiles_x,
-                                bins.tiles_y)
-    lights = tmega.stack_lights(params, *light_records_from_numpy(*lrec),
-                                grid_n=GRID)
+                                bins.tiles_y, device="cpu")
+    lights = tmega.stack_lights(
+        params, *light_records_from_numpy(*lrec, device="cpu"), grid_n=GRID)
     before = tmega.launches
     img = tmega.render_image_mega(
         torch.as_tensor(np.array(cd)), tb.sph_zmin, lights, params, 0, **kw)
@@ -167,8 +167,10 @@ def test_unported_options_raise(monkeypatch):
     half = colors.copy()
     half[0, 3] = 0.5
     monkeypatch.setattr(trender, "AO_EXACT_MAX_SPHERES", 0)
-    with pytest.raises(NotImplementedError, match="B1e"):
-        ao.render(pos, half, radii, width=32, height=32)
+    # a translucent atom with AO: the megakernel peels it (B1e)
+    img = ao.render(pos, half, radii, width=32, height=32)
+    assert ao._route_name == "mega" and ao._scene[6]
+    assert img.shape == (32, 32, 4) and img[..., :3].std() > 1
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     edges = np.stack([pos[:4], pos[4:8]], axis=1)       # 4 cylinders, 8 rings
     kw = dict(width=32, height=32)
@@ -205,15 +207,25 @@ def test_unported_options_raise(monkeypatch):
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 12)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     assert ren.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
-    # a transparent box or bond is B1e, like a transparent atom
-    with pytest.raises(NotImplementedError, match="B1e"):
+    # a transparent box or bond, like a transparent atom, takes the
+    # megakernel's peels (B1e) ...
+    for extra in (dict(box_edges=edges, box_color=(1.0, 1.0, 1.0, 0.5)),
+                  dict(bond_edges=edges, bond_color=(0.8, 0.8, 0.8, 0.5))):
+        got = ren.render(pos, colors, radii, **extra, **kw)
+        assert ren._route_name == "mega" and ren._scene[6]
+        assert got.shape == (32, 32, 4) and got[..., :3].std() > 1
+    got = ren.render(pos, half, radii, width=32, height=32)
+    assert ren._route_name == "mega" and ren._scene[6]
+    # ... and past the cylinder limits, the exact tracer in the JAX
+    # renderer (A6)
+    monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 11)
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    with pytest.raises(NotImplementedError, match="A6"):
         ren.render(pos, colors, radii, box_edges=edges,
                    box_color=(1.0, 1.0, 1.0, 0.5), **kw)
-    with pytest.raises(NotImplementedError, match="B1e"):
-        ren.render(pos, colors, radii, bond_edges=edges,
-                   bond_color=(0.8, 0.8, 0.8, 0.5), **kw)
-    with pytest.raises(NotImplementedError, match="B1e"):
-        ren.render(pos, half, radii, width=32, height=32)
+    with pytest.raises(NotImplementedError, match="A6"):
+        ren.render(pos, half, radii, bond_edges=edges, **kw)
+    monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 12)
     monkeypatch.setattr(trender, "RECORD_BUDGET_BYTES", 1024)
     with pytest.raises(NotImplementedError, match="B1f"):
         ren.render(pos, colors, radii, width=32, height=32)
@@ -228,6 +240,12 @@ def test_cuda_backend_refuses_without_card(monkeypatch):
             torch.zeros((1, 1, 8, 128)), torch.zeros((1, 1)), None,
             np.zeros(64, np.float32), 0, S=1, tiles_x=1,
             grid_n=1, eps=4e-4, perspective=True, shadows=False)
+    # the low-level path builds on the card unless asked for the CPU
+    from mdapy_tpu_torch.render.scene import build_scene as tbuild_scene
+    one = (np.zeros((1, 3)), np.ones((1, 4), np.float32), np.ones(1, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbuild_scene(*one)
+    assert tbuild_scene(*one, device="cpu").sph_center.device.type == "cpu"
 
 
 def test_port_imports_no_jax():
@@ -247,6 +265,14 @@ def test_port_imports_no_jax():
         "img = m.TachyonRender(backend='cpu', ao_samples=4).render("
         "pos, col, rad, width=48, height=32)\n"
         "assert img.shape == (32, 48, 4) and img.std() > 1\n"
+        "tcol = col.copy()\n"
+        "tcol[::2, 3] = 0.4\n"
+        "r = m.TachyonRender(backend='cpu', ao=False)\n"
+        "glass = r.render(pos, tcol, rad, width=48, height=32)\n"
+        "assert r._scene[6] and glass.std() > 1\n"
+        "d = np.abs(glass.astype(int) - r.render(pos, col, rad, width=48, "
+        "height=32)).max(axis=2)\n"
+        "assert (d > 8).sum() > 20\n"
         "class Cell:\n"
         "    matrix = np.eye(3) * 2 * a\n"
         "    origin = np.zeros(3)\n"

@@ -104,15 +104,16 @@ def _accel(kind: str, preset: str, relit: bool = True):
     if jb.sph_chunks is not None:
         jcd = jpk.gather_chunk_data(jb.sph_chunks, jscene.sph_center,
                                     jscene.sph_radius, jscene.sph_color)
-    tscene = scene_from_numpy(jscene)
+    tscene = scene_from_numpy(jscene, device="cpu")
     nb = jb.tiles_x * jb.tiles_y
     tb = screen_bins_from_numpy(
         jb.sph_chunks if jcd is not None else np.full((nb, 1, 128), -1),
         jb.sph_zmin if jcd is not None else np.full((nb, 1), 1e17, np.float32),
         jb.tiles_x, jb.tiles_y, cyl=jb.cyl, ring=jb.ring,
-        ncyl=jscene.cyl_base.shape[0])
+        ncyl=jscene.cyl_base.shape[0], device="cpu")
     tcd = None if jcd is None else torch.as_tensor(np.array(jcd))
-    return frame, jscene, jb, jlb, jcd, tscene, tb, light_bins_from_numpy(jlb), tcd
+    return (frame, jscene, jb, jlb, jcd, tscene, tb,
+            light_bins_from_numpy(jlb, device="cpu"), tcd)
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +255,7 @@ def test_kernels_plain_match_pallas_interpret(preset, S):
     jf = np.asarray(jpk.shadow_filter_tiles(
         jnp.asarray(uvt), jnp.asarray(cell), jnp.asarray(lit), jl[0], jl[1],
         jl[2], grid_n=GRID, eps=EPS, interpret=True))
-    lrec, loffs, lcnt, _ = light_records_from_numpy(*jl)
+    lrec, loffs, lcnt, _ = light_records_from_numpy(*jl, device="cpu")
     tf = tile_kernels.shadow_filter_tiles(
         torch.as_tensor(uvt), torch.as_tensor(cell), torch.as_tensor(lit),
         lrec, loffs, lcnt, grid_n=GRID, eps=EPS).numpy()
@@ -370,7 +371,7 @@ def test_render_image_pallas_matches_jax(kind, preset, aa, relit, band, eps):
                                    "iplaneup", "view", "light_dir"))
     persp = bool(frame["perspective"])
     jl = jaccel.build_light_records(jlb, jscene) if kind == "spheres" else None
-    tl = light_records_from_numpy(*jl) if jl is not None else None
+    tl = light_records_from_numpy(*jl, device="cpu") if jl is not None else None
     ty0, ty1 = band or (0, jb.tiles_y)
     b0, b1 = ty0 * jb.tiles_x, ty1 * jb.tiles_x
     kb = (lambda k: None if k is None else jaccel.KindBins(k.cand[b0:b1], k.count[b0:b1]))
