@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -42,7 +42,15 @@ Phases (any failure exits non-zero before the last line is printed):
    lights); (r) the opaque scene at n_peel 4 against the opaque kernel;
    (s) S = 21, whose peel state takes a device buffer, not shared memory;
    and (q) the 54-atom BCC block with its bonds at alpha 0.5 and its cell
-   at 0.6, as ``TachyonRender.render`` hands them to the kernel.
+   at 0.6, as ``TachyonRender.render`` hands them to the kernel.  (w) The
+   shadow walks, kernel against plain at max |diff| 0:
+   ``tests/_walk_scene.py``'s columns over target spheres,
+   whose light cells hold 31-33 and 63-65 records, a transmission that
+   reaches 1e-3 in mid-step, an atom at alpha 0.999995 and key stops in
+   mid-step, translucent (n_peel 4 with AO 4, peel1) and opaque (with and
+   without AO 4); and the 2,048-atom scene under the preset's light (warps
+   with one lit lane) and lit from beside the camera (warps with all 32).
+   The variants' registers, spills and blocks an SM print in phase 1.
 3. The headline frame at full size, one light: the 1,000,188-atom FCC block
    (a = 3.615, r = 1.28), the "perspective" preset camera, 1920x1080, AA 12
    (13 samples) with primary-light shadows, through
@@ -126,6 +134,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -138,6 +147,20 @@ TOL_HIT = 1e-4        # max |diff| of the closest hit's t and record (0 expected
 TOL_FILT = 1e-5       # share of rays whose shadow filter may differ (0 expected)
 TOL_LEVELS = 1e-3     # share of uint8 pixels off by > 1 level, card against CPU
 TOL_PEEL = 1e-4       # max |diff| of a peel case, kernel against plain (0 expected)
+
+
+# the megakernel variants of the measured frames (kernel_attrs's flags; a
+# peel variant with its state in shared memory at the frame's S and lights)
+MAIN_VARIANTS = {
+    "headline": dict(perspective=True, shadows=True, ao=False, other=False, peel=False),
+    "config3": dict(perspective=True, shadows=True, ao=True, other=False, peel=False),
+    "config2": dict(perspective=True, shadows=True, ao=False, other=True, peel=False),
+    "config3_cell": dict(perspective=True, shadows=True, ao=True, other=True, peel=False),
+    "T1": dict(perspective=True, shadows=True, ao=False, other=False, peel=True, S=13),
+    "T2": dict(perspective=True, shadows=True, ao=True, other=False, peel=True, S=3,
+               nlights=13),
+    "T3": dict(perspective=True, shadows=True, ao=False, other=True, peel=True, S=13),
+}
 
 
 def fail(msg: str) -> None:
@@ -520,9 +543,10 @@ def compare_levels(img_a, img_b, what: str, share: float) -> int:
 
 
 def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
-                         grid=32):
+                         grid=32, light_dir=None):
     """The megakernel's inputs for a sphere scene, built on ``dev`` as the
-    front end builds them: (frame, bins, chunk_data, lights, params)."""
+    front end builds them: (frame, bins, chunk_data, lights, params); with
+    ``light_dir``, the frame's light comes from there."""
     from mdapy_tpu_torch.render import megakernel
     from mdapy_tpu_torch.render import render as trender
     from mdapy_tpu_torch.render.accel import (
@@ -534,6 +558,8 @@ def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
 
     scene = build_scene(pos, colors, radii, device=dev)
     frame = camera_frame(cam, width, height)
+    if light_dir is not None:
+        frame = dict(frame, light_dir=np.asarray(light_dir, np.float64))
     bins = build_screen_bins(scene, frame, width, height)
     lb = build_light_bins(scene, frame["light_dir"], grid=grid)
     chunk_data = gather_chunk_data(bins.sph_chunks, scene.sph_center,
@@ -692,6 +718,103 @@ def peel_cases(dev, card: str) -> list:
     return errs
 
 
+def lit_lanes_per_warp(megakernel, fn):
+    """Run ``fn`` (a plain-version render) and return, for every warp (32
+    pixels of a tile, one sample) that holds a lit ray of the primary light,
+    its count of lit lanes."""
+    seen = []
+    inner = megakernel._light_blocked
+
+    def spy(lights, lp, l, h, sel, **kw):
+        if l == 0:
+            seen.append(sel.clone())
+        return inner(lights, lp, l, h, sel, **kw)
+
+    with swapped(megakernel, _light_blocked=spy):
+        fn()
+    # rays are (tiles, samples * 256), flattened: 32 in a row are one warp
+    c = torch.cat([torch.bincount(sel // 32, minlength=1) for sel in seen])
+    return c[c > 0]
+
+
+def walk_cases(dev, card: str) -> list:
+    """Phase 2 (w): long and short cell walks, kernel against plain (max
+    |diff| 0).  The scene is ``tests/_walk_scene.py``'s, which the CPU test
+    ``tests/test_torch_walks.py`` holds against the JAX package."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _walk_scene import WALK_CASES, walk_scene
+    from mdapy_tpu_torch import preset_camera
+    from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render.camera import CameraParams, camera_frame
+    from mdapy_tpu_torch.render.config import RenderConfig
+
+    errs = []
+
+    def check(args, kw, what):
+        out_p = megakernel.mega_render_plain(*args, **kw)
+        if float(out_p.std()) < 0.02:
+            fail(f"{what}: the plain image is flat")
+        out_k = megakernel.mega_render_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        if not bool(torch.isfinite(out_k).all()) or err != 0.0:
+            fail(f"{what}: max |diff| {err:.3e} against the plain version "
+                 "(0 required)")
+        errs.append(err)
+        work = megakernel.plain_work(*args, **kw)
+        print(f"  {what}: max |diff| 0; lit rays {work.get('lit', 0)}, "
+              f"records walked {work.get('record', 0)}")
+        return work
+
+    pos, colors, radii, cam_kw, light = walk_scene()
+    cam = CameraParams(**cam_kw)
+    opaque = np.c_[colors[:, :3], np.ones(len(colors))].astype(np.float32)
+    for label, cols, ao, peel in (
+            ("translucent n_peel=4, AO 4", colors, 4, dict(n_peel=4)),
+            ("translucent peel1", colors, 0, dict(peel1=True)),
+            ("opaque, AO 4", opaque, 4, {}),
+            ("opaque", opaque, 0, {})):
+        cfg = RenderConfig(aa_samples=2, ao_enabled=ao > 0, ao_samples=ao,
+                           shadows_enabled=True)
+        frame, bins, cd, lights, params = prepare_sphere_frame(
+            dev, pos, cols, radii, cam, 320, 240, cfg, light_dir=light)
+        longest = int(lights.lcnt[0].max())
+        kw = dict(S=3, tiles_x=bins.tiles_x, grid_n=32, eps=cfg.eps,
+                  perspective=False, shadows=True, **peel)
+        work = check((cd, bins.sph_zmin, lights, params, 0), kw,
+                     f"[2w] {len(pos)} atoms, columns of {[c[0] for c in WALK_CASES]}, "
+                     f"{label}, largest primary cell {longest} records")
+        if longest < 65 or (peel and work.get("record", 0) < 32 * work.get("lit", 1)):
+            fail(f"[2w] {label}: the walks are not long ({work})")
+    # warps with one lit lane and warps with all 32 lit: the FCC block under
+    # the preset's light, and lit from beside the camera
+    pos, colors, radii = fcc_block(8, seed=3)
+    cam = preset_camera("perspective", pos, max_radius=1.28)
+    cfg = RenderConfig(aa_samples=2, ao_enabled=False, shadows_enabled=True)
+    base = camera_frame(cam, 320, 240)
+    right = np.asarray(base["iplaneright"], np.float64)
+    side = -np.asarray(base["view"]) + 0.8 * right / np.linalg.norm(right)
+    lanes = []
+    for label, light in (("the preset's light", None),
+                         ("lit from beside the camera", side / np.linalg.norm(side))):
+        frame, bins, cd, lights, params = prepare_sphere_frame(
+            dev, pos, colors, radii, cam, 320, 240, cfg, light_dir=light)
+        kw = dict(S=3, tiles_x=bins.tiles_x, grid_n=32, eps=cfg.eps,
+                  perspective=True, shadows=True)
+        args = (cd, bins.sph_zmin, lights, params, 0)
+        counts = lit_lanes_per_warp(
+            megakernel, lambda: megakernel.mega_render_plain(*args, **kw))
+        lanes.append(counts)
+        check(args, kw, f"[2w] {len(pos)} atoms, {label}: warps with a lit "
+              f"lane {counts.numel()}, with one {int((counts == 1).sum())}, "
+              f"all 32 lit {int((counts == 32).sum())}")
+    counts = torch.cat(lanes)
+    if not (int((counts == 1).sum()) and int((counts == 32).sum())):
+        fail("[2w] no warp with a single lit lane, or none with all lanes lit")
+    print(f"  [2w] on {card}: walk cases max |diff| {max(errs):.3e}")
+    return errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -732,6 +855,10 @@ def main() -> None:
         for line in lib.log.splitlines():
             if "Used" in line or "spill" in line:
                 print("    " + line.strip())
+    variants = {}
+    for name, flags in MAIN_VARIANTS.items():
+        variants[name] = megakernel.kernel_attrs(**flags)
+        print(f"  megakernel variant {name} {flags}: {variants[name]}")
 
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
@@ -908,12 +1035,17 @@ def main() -> None:
 
     # (m)-(s): transparency peeling
     peel_errs = peel_cases(dev, card)
+    # (w): long and short cell walks
+    peel_errs += walk_cases(dev, card)
 
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
     pos, colors, radii = fcc_block(63)
     cam = preset_camera("perspective", pos, max_radius=float(radii.max()))
-    ren = TachyonRender(backend="cuda", ao=False)
+    # "gpu", the reference renderer's name for the card (ROADMAP C8)
+    ren = TachyonRender(backend="gpu", ao=False)
+    if ren.backend != "cuda":
+        fail(f'TachyonRender(backend="gpu") took backend {ren.backend!r}')
 
     def frame_once():
         return ren.render(pos, colors, radii, camera=cam, width=width,
@@ -966,14 +1098,19 @@ def main() -> None:
           f"per tile {nchunks}, live tiles "
           f"{int((frame_bins.sph_zmin[:, 0] < 1e17).sum())}, light records "
           f"{lights_main.lrec.shape[0]}, records {chunk_data.numel() * 4} bytes")
+    hit_ms = event_ms(lambda: megakernel.mega_render_cuda(
+        chunk_data, frame_bins.sph_zmin, None, params, 0,
+        **dict(kw, shadows=False)), 5)
+    print(f"  kernel split: closest hit + shading {hit_ms:.3f} ms, shadow "
+          f"walks +{kernel_ms - hit_ms:.3f} ms")
 
     # kernel vs plain on the whole frame, then timed over a band of the
     # frame's middle tile rows
     out_k = megakernel.mega_render_cuda(*args, **kw)
     out_p, t_plain = sync_time(lambda: megakernel.mega_render_plain(*args, **kw))
     errs.append(compare(out_k, out_p, f"[3] full frame (plain {t_plain:.2f} s)"))
-    frame_bound("headline", megakernel.plain_work(*args, **kw), kernel_ms, nb,
-                lights=lights_main)
+    work3 = megakernel.plain_work(*args, **kw)
+    frame_bound("headline", work3, kernel_ms, nb, lights=lights_main)
     del out_k, out_p
     b_head = band_check(megakernel, args, kw, frame_bins,
                         f"[3] headline on {card}", lights=lights_main)
@@ -1133,20 +1270,20 @@ def main() -> None:
           f"hit + shading over the peels {t1_hit_ms:.3f} ms, shadow walks "
           f"+{t1_kernel_ms - t1_hit_ms:.3f} ms")
     plain_out = []
-    work, t_plain = sync_time(lambda: megakernel.count_work(
+    work_t1, t_plain = sync_time(lambda: megakernel.count_work(
         lambda: plain_out.append(megakernel.mega_render_plain(*args, **kw))))
     out_k = megakernel.mega_render_cuda(*args, **kw)
     peel_errs.append(compare(out_k, plain_out[0], f"[T1] full frame (plain "
                                                   f"{t_plain:.2f} s)"))
     nb = frame_bins.sph_zmin.shape[0]
-    ran = [work.get(f"peel{p}", 0) for p in range(4)] + [0]
+    ran = [work_t1.get(f"peel{p}", 0) for p in range(4)] + [0]
     print("  live tiles by the peels they ran: " + ", ".join(
         f"{k}: {ran[k - 1] - ran[k]}" for k in range(1, 5))
         + f" (of {nb} tiles, {nb - ran[0]} without a candidate); "
-        f"records walked {work.get('record', 0)} over {work.get('lit', 0)} lit "
-        f"rays ({work.get('record', 0) / max(1, work.get('lit', 0)):.1f} a lit "
-        f"ray); chunks read {work.get('chunk', 0)}")
-    frame_bound("T1", work, t1_kernel_ms, nb, lights=lights)
+        f"records walked {work_t1.get('record', 0)} over {work_t1.get('lit', 0)} lit "
+        f"rays ({work_t1.get('record', 0) / max(1, work_t1.get('lit', 0)):.1f} a lit "
+        f"ray); chunks read {work_t1.get('chunk', 0)}")
+    frame_bound("T1", work_t1, t1_kernel_ms, nb, lights=lights)
     del out_k, plain_out
     t1 = band_check(megakernel, args, kw, frame_bins, f"[T1] on {card}",
                     lights=lights)
@@ -1680,6 +1817,12 @@ def main() -> None:
         "peel_config2_plain_ms": t3["plain_ms"],
         "peel_config2_bound_ms": t3["bound_ms"],
         "peel_config2_bound_by": t3["bound_by"],
+        "registers": {k: v["registers"] for k, v in variants.items()},
+        "local_bytes": {k: v["local_bytes"] for k, v in variants.items()},
+        "blocks_per_sm": {k: v["blocks_per_sm"] for k, v in variants.items()},
+        "records_per_lit_ray": {
+            "headline": work3.get("record", 0) / max(1, work3.get("lit", 0)),
+            "T1": work_t1.get("record", 0) / max(1, work_t1.get("lit", 0))},
     }, {
         "name": "closest_hit_spheres_tiles",
         "route": "cuda",

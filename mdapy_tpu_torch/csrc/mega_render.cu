@@ -11,23 +11,43 @@
 //   * one thread block per 16x16 screen tile, one thread per pixel, the AA
 //     samples looped inside the thread in groups of up to SG (each group
 //     shares one walk over the tile's candidate chunks);
-//   * each (8, 128) candidate chunk is staged in shared memory, with the
-//     ray-independent terms (o - c and |o - c|^2 - r^2 for perspective)
-//     computed once per candidate; after each chunk a block-wide max of
-//     min(best_t, tcap) decides the zmin early exit;
+//   * the chunk walk is a two-stage pipeline: while the block tests chunk c,
+//     rows 0-3 (x, y, z, r) of chunk c + 1 arrive by cp.async, every thread
+//     copying two of a candidate's four values, and once its copies land
+//     each pair of lanes trades halves by a shuffle and writes the
+//     candidate's ray-independent terms (o - c and |o - c|^2 - r^2 for
+//     perspective) into the second of two buffers.  The zmin early exit is
+//     the same per-chunk test (tzmin[c] < the block max of min(best_t,
+//     tcap)); a chunk that test cannot reach is not fetched.  The block max
+//     of a chunk and the buffer swap share one barrier: each warp writes its
+//     max into one of two slots, so a chunk costs one __syncthreads;
 //   * ties in t keep the lowest slot of the earliest chunk, as the TPU
 //     kernel's exclusive one-hot select does;
-//   * the shadow sweep is per ray: a lit point walks its light-grid cell's
-//     records in descending far-key order and stops at the first occluder or
-//     once key <= tau + eps, after which no record can occlude;
+//   * shadows: after a sample group's surfaces, every lit point whose
+//     light-grid cell can occlude it (a count > 0 and a max key above tau +
+//     eps, read before queueing) enters a shared-memory queue of walks: (the
+//     cell's record offset and count, u, v, tau + eps), placed by a prefix
+//     over the block so that each thread finds its entries again.  Sample 0
+//     queues its AO sky lights in the same batch.  Each queued walk first
+//     runs one thread per entry for up to WALK_SERIAL records (the opaque
+//     frames' walks end there); the walks left go one warp per walk: the 32
+//     lanes read records i..i+31 together (1 KB, coalesced), each tests the
+//     key stop and the occlusion of its record, and two ballots give the
+//     first stop and the occluders before it.  A binary walk is blocked by
+//     any of them; a transmission walk multiplies the factors 1 - alpha (0
+//     at alpha >= 0.99999) of the set bits one after another, in record
+//     order, and stops at <= 1e-3, so the product rounds as the serial walk
+//     rounds it (no tree scan).  A binary walk is the transmission walk with
+//     every factor 0.  Every variant queues: in the cylinder variants the
+//     queue's code makes the cyl/ring and occluder loops compile worse
+//     (small scenes with short walks lose ~9 %), but walking in place there
+//     costs a million-atom frame with its cell's edges 1.7x (PERF.md §6);
 //   * with ambient occlusion (the AO template flag) lights 1..L-1 are the
 //     directional sky lights of the JAX package's fast AO.  As in its
 //     ao_shared mode, their occlusion is tested on AA sample 0's hit point
-//     only: while the first sample group is shaded, sample 0 walks each sky
-//     light's cell records and keeps the result as one bit per light.  Every
-//     sample then adds lit * n.L * lightcol * (1 - bit) for each light in
-//     light order, with its own normal.  The light rows (L x 16 floats) sit
-//     in shared memory.  Without AO the kernel is the one-light kernel;
+//     only, and kept as one bit per light.  Every sample then adds lit * n.L
+//     * lightcol * (1 - bit) for each light in light order, with its own
+//     normal.  The light rows (L x 16 floats) sit in shared memory;
 //   * with cylinders and rings (the OTHER template flag) the block stages the
 //     tile's cyl/ring records (at most 512, one per thread per batch) in
 //     shared memory after the sphere walk, and each thread tests them for
@@ -41,9 +61,7 @@
 //     compacts the entries that pass the conservative cull of the JAX kernel
 //     (megakernel.py:1156-1194) into shared memory 256 at a time, and tests
 //     them.  The primary light does this per sample group, each sky light on
-//     sample 0; every cell walk of a group comes before the first occluder
-//     test, so no barrier falls between walks of uneven length.  Without
-//     OTHER the code is the sphere-only kernel;
+//     sample 0, after the group's walks;
 //   * with transparency (the PEEL template flag; megakernel.py:328-406,
 //     1338-1396) the block runs up to n_peel peels, each over every sample
 //     group, and a peel p > 0 only while the largest weight W over the
@@ -56,9 +74,8 @@
 //     origin, so the perspective chunk and cyl/ring tests take the per-ray
 //     form, and the zmin exit adds each ray's camera depth.  The hit is
 //     shaded as in the opaque kernel with transmissions for shadow bits:
-//     the cell walk multiplies 1 - alpha per occluder and ends at 1e-3
-//     (walk_cell_trans), the occluder table multiplies every lit ray whose
-//     transmission is > 0, its entries staged in table order so the
+//     the cell walks above, the occluder table multiplies every lit ray
+//     whose transmission is > 0, its entries staged in table order so the
 //     products round alike in every run, and each AO sky light keeps one
 //     float per pixel, sample 0's transmission of this peel.  The colour
 //     sums gain W * alpha * colour (a miss: the background at alpha 1), W
@@ -68,15 +85,19 @@
 //
 // What bounds it on the card: per-ray sphere tests (about 10 fp32 operations
 // each, ~128 per processed chunk) and the shadow walks, whose lengths vary
-// from ray to ray and so diverge within a warp; with AO, sample 0 runs L-1
-// more walks one after another.  Candidate records are read once per chunk
-// per block, so device memory traffic is small next to the arithmetic.  With
-// cylinders the dense per-tile cyl/ring tests (about 40 operations each) and
-// the culled occluder tests add to it.  The limits the front end keeps (at
-// most 512 cyl/ring candidates in a tile and 8,192 live cylinders + rings
-// with shadows or AO) are those of the JAX package; past them it takes
-// another tracer.  Later work: warp-cooperative shadow windows, sorting rays
-// by light cell, persistent blocks, depth-sorted cyl/ring chunks.
+// from ray to ray (a translucent frame's transmission walks read hundreds of
+// records a lit ray).  The queue keeps every warp busy on the walks whatever
+// the share of lit lanes, and the warp walk turns a long walk into 32-record
+// coalesced steps.  The tests are 3-wide f32 dot products that must round as
+// the plain version's do, so the tensor cores do not serve them: a TF32
+// wgmma would round the products differently and change hits.  Candidate
+// records are read once per chunk per block, so device memory traffic is
+// small next to the arithmetic.  With cylinders the dense per-tile cyl/ring
+// tests (about 40 operations each) and the culled occluder tests add to it.
+// The limits the front end keeps (at most 512 cyl/ring candidates in a tile
+// and 8,192 live cylinders + rings with shadows or AO) are those of the JAX
+// package; past them it takes another tracer.  Later work: persistent blocks
+// over the live tiles, depth-sorted cyl/ring chunks.
 //
 // Built by mdapy_tpu_torch/render/_build.py with nvcc for sm_90a into a
 // shared library with a plain C interface (ctypes).  It is compiled with
@@ -93,11 +114,19 @@ using render::sphere_root;
 
 constexpr int TILE = 16;
 constexpr int P = TILE * TILE;   // pixels per tile = threads per block
+constexpr int NW = P / 32;       // warps per block
 constexpr int SG = 8;            // most AA samples traced per chunk walk
 constexpr int MAX_LIGHTS = 64;   // lights a launch takes (one mask bit each)
 constexpr int OCB = P;           // cyl/ring records staged per batch
 constexpr int OTHER_BIT = 1 << 30;  // winner index flag: a cyl/ring record
+constexpr int WQ = 2 * P;        // shadow walks queued per round (OTHER)
+// records a queued walk reads one thread per walk before a warp takes over
+// the rest, 32 a step: chosen on the card from 0-128 (PERF.md §6)
+constexpr int WALK_SERIAL = 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float MINCONTRIB = 1.0f / 512.0f;
+constexpr float OPAQUE_ALPHA = 0.99999f;  // an occluder at or above blocks fully
+constexpr float TRANS_FLOOR = 1e-3f;      // a walk ends at a transmission <= this
 
 // (tile, sample, pixel) -> jitter in [-0.5, 0.5): the JAX package's int32
 // avalanche hash (megakernel.py:_hash_jitter), in wrapping uint32 arithmetic.
@@ -124,63 +153,253 @@ __device__ __forceinline__ void axis_exit(float o, float d, float lo, float hi,
   tf = fmaxf(t0, t1);
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  return render::block_max<P>(v, red);
+// Block-wide max with one barrier: each warp's max goes to slot rsel of red
+// (two slots of NW floats), which flips on every call.  A call's slot was
+// last read before the previous call's barrier, so no second barrier is
+// needed.  Every thread gets the result; every thread must call it.
+__device__ __forceinline__ float block_max(float v, float (*red)[NW], int& rsel) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  float* r = red[rsel];
+  rsel ^= 1;
+  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = r[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) m = fmaxf(m, r[w]);
+  return m;
 }
 
-// True when a record of the point's light-grid cell blocks it (the walk of
-// render_common.cuh, behind the cell's max-key gate).
-__device__ __forceinline__ bool occluded(const float4* __restrict__ lrec,
-                                         const int* __restrict__ loffs,
-                                         const int* __restrict__ lcnt,
-                                         const float* __restrict__ lkmax,
-                                         int cell, float u, float v,
-                                         float tau_eps) {
-  const int cnt = lcnt[cell];
-  if (!(cnt > 0 && lkmax[cell] > tau_eps)) return false;
-  return render::walk_cell(lrec + 2 * (size_t)loffs[cell], cnt, u, v, tau_eps);
+// ---- the chunk pipeline ---------------------------------------------------
+// Candidate j = 16 * warp + (lane & 15) of a chunk: lanes 0-15 copy its x and
+// y, lanes 16-31 its z and r, into craw (4 rows of CH), by cp.async.
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-// Shadow test of hit point h toward the light of row lp (dir, e1, e2, org,
-// inv_cell), whose cells start at cell0 in the stacked CSR arrays.
-__device__ __forceinline__ bool light_blocked(const float* lp, float hx,
-                                              float hy, float hz, int grid_n,
-                                              int cell0, float eps,
-                                              const float4* __restrict__ lrec,
-                                              const int* __restrict__ loffs,
-                                              const int* __restrict__ lcnt,
-                                              const float* __restrict__ lkmax) {
-  const float u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9];
-  const float v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10];
+__device__ __forceinline__ void chunk_fetch(const float* __restrict__ ch,
+                                            float* craw) {
+  const int j = (threadIdx.x >> 5) * 16 + (threadIdx.x & 15);
+  const int row = (threadIdx.x & 16) ? 2 : 0;
+  cp_async4(craw + row * CH + j, ch + row * CH + j);
+  cp_async4(craw + (row + 1) * CH + j, ch + (row + 1) * CH + j);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's copies (cp.async.wait_all makes them visible to the
+// copying thread, and only it reads them), trades halves with lane ^ 16 and
+// writes candidate j's ray-independent terms to cand (camo: every ray starts
+// at (ox, oy, oz)).
+__device__ __forceinline__ void chunk_stage(const float* craw, float4* cand,
+                                            bool camo, float ox, float oy,
+                                            float oz) {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const int j = (threadIdx.x >> 5) * 16 + (threadIdx.x & 15);
+  const int row = (threadIdx.x & 16) ? 2 : 0;
+  const float p0 = craw[row * CH + j], p1 = craw[(row + 1) * CH + j];
+  const float q0 = __shfl_xor_sync(FULL, p0, 16);
+  const float q1 = __shfl_xor_sync(FULL, p1, 16);
+  if (row == 0) {
+    const float cx = p0, cy = p1, cz = q0, r = q1;
+    if (camo) {
+      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+      const float ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+      // a dead slot gets ccb = +inf, so its discriminant is negative
+      cand[j] = make_float4(ocx, ocy, ocz, r > 0.0f ? ccb : INFINITY);
+    } else {
+      cand[j] = make_float4(cx, cy, cz, r > 0.0f ? r * r : -INFINITY);
+    }
+  }
+}
+
+// ---- the shadow walks -----------------------------------------------------
+
+// Light-space (u, v) and tau + eps of hit point h toward the light of row lp
+// (dir, e1, e2, org, inv_cell), and its cell in the stacked CSR arrays, whose
+// cells for this light start at cell0.
+__device__ __forceinline__ int light_cell(const float* lp, float hx, float hy,
+                                          float hz, int grid_n, int cell0,
+                                          float eps, float& u, float& v,
+                                          float& te) {
+  u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9];
+  v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10];
   const float tau = hx * lp[0] + hy * lp[1] + hz * lp[2];
   const float gmax = (float)(grid_n - 1);
   const float gx = fminf(fmaxf(floorf(u * lp[11]), 0.0f), gmax);
   const float gy = fminf(fmaxf(floorf(v * lp[11]), 0.0f), gmax);
-  const int cell = cell0 + (int)gy * grid_n + (int)gx;
-  return occluded(lrec, loffs, lcnt, lkmax, cell, u, v, tau + eps);
+  te = tau + eps;
+  return cell0 + (int)gy * grid_n + (int)gx;
 }
 
-// The transmission of hit point h toward the light of row lp through its
-// light-grid cell's records (walk_cell_trans behind the max-key gate).
-__device__ __forceinline__ float light_trans(const float* lp, float hx,
-                                             float hy, float hz, int grid_n,
-                                             int cell0, float eps,
-                                             const float4* __restrict__ lrec,
-                                             const int* __restrict__ loffs,
-                                             const int* __restrict__ lcnt,
-                                             const float* __restrict__ lkmax) {
-  const float u = hx * lp[3] + hy * lp[4] + hz * lp[5] - lp[9];
-  const float v = hx * lp[6] + hy * lp[7] + hz * lp[8] - lp[10];
-  const float tau = hx * lp[0] + hy * lp[1] + hz * lp[2];
-  const float gmax = (float)(grid_n - 1);
-  const float gx = fminf(fmaxf(floorf(u * lp[11]), 0.0f), gmax);
-  const float gy = fminf(fmaxf(floorf(v * lp[11]), 0.0f), gmax);
-  const int cell = cell0 + (int)gy * grid_n + (int)gx;
-  const float tau_eps = tau + eps;
-  const int cnt = lcnt[cell];
-  if (!(cnt > 0 && lkmax[cell] > tau_eps)) return 1.0f;
-  return render::walk_cell_trans(lrec + 2 * (size_t)loffs[cell], cnt, u, v,
-                                 tau_eps);
+// True when the cell can occlude the point: it has records and its largest
+// far key exceeds tau + eps.  Only such points queue a walk.
+__device__ __forceinline__ bool cell_gate(const int* __restrict__ lcnt,
+                                          const float* __restrict__ lkmax,
+                                          int cell, float te) {
+  return lcnt[cell] > 0 && lkmax[cell] > te;
+}
+
+// Record a = [cu, cv, ck, r] occludes the point (u, v) at tau + eps = te.
+__device__ __forceinline__ bool rec_occludes(float4 a, float u, float v,
+                                             float te) {
+  const float du = a.x - u, dv = a.y - v;
+  const float s2 = a.w * a.w - (du * du + dv * dv);
+  const float q = te - a.z;
+  return s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q);
+}
+
+// The factor an occluder of alpha a leaves: 1 - a, or 0 at a >= 0.99999;
+// always 0 in a binary walk.
+template <bool TRANS>
+__device__ __forceinline__ float occ_factor(float a) {
+  return TRANS ? (a >= OPAQUE_ALPHA ? 0.0f : 1.0f - a) : 0.0f;
+}
+
+// The queue of one round of walks, in shared memory, an array per field.
+struct WalkQueue {
+  int* off;     // the walk's next record, into lrec's rows of two float4
+  int* cnt;     // records left in the cell
+  float* u;
+  float* v;
+  float* te;    // tau + eps
+  float* tr;    // transmission so far: the result (0 = blocked when binary)
+  short* lng;   // entries left for the warps
+  int* nlong;   // their count
+  int* next;    // the warps' next pick from lng
+};
+
+// Writes entry e: the walk of hit point h toward the light of row lp.
+__device__ __forceinline__ void queue_walk(const WalkQueue& q, int e,
+                                           const float* lp, float hx, float hy,
+                                           float hz, int grid_n, int cell0,
+                                           float eps,
+                                           const int* __restrict__ loffs,
+                                           const int* __restrict__ lcnt) {
+  float u, v, te;
+  const int cell = light_cell(lp, hx, hy, hz, grid_n, cell0, eps, u, v, te);
+  q.off[e] = loffs[cell];
+  q.cnt[e] = lcnt[cell];
+  q.u[e] = u;
+  q.v[e] = v;
+  q.te[e] = te;
+}
+
+// Entry e walked by one thread for at most WALK_SERIAL records, from
+// transmission 1, two records loaded at a time (four spill the opaque
+// kernels' registers); an entry not finished then goes to the warps' list
+// with its progress.
+template <bool TRANS>
+__device__ __forceinline__ void walk_serial(const float4* __restrict__ lrec,
+                                            const WalkQueue& q, int e) {
+  const int off = q.off[e], cnt = q.cnt[e];
+  const float u = q.u[e], v = q.v[e], te = q.te[e];
+  const float4* rp = lrec + 2 * (size_t)off;
+  const int n = min(cnt, WALK_SERIAL);
+  float tr = 1.0f;
+  bool done = false;
+  int i = 0;  // records walked
+  while (i < n && !done) {
+    float4 a[2], b[2];  // cu, cv, ck, r and key, alpha, 0, 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (i + r < n) {
+        a[r] = rp[2 * (i + r)];
+        b[r] = rp[2 * (i + r) + 1];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!done && i < n) {  // record i is record r of the two
+        if (b[r].x <= te) {
+          done = true;
+        } else {
+          if (rec_occludes(a[r], u, v, te)) {
+            tr = tr * occ_factor<TRANS>(b[r].y);
+            done = tr <= TRANS_FLOOR;
+          }
+          ++i;
+        }
+      }
+    }
+  }
+  q.tr[e] = tr;
+  if (!done && i < cnt) {
+    q.off[e] = off + i;
+    q.cnt[e] = cnt - i;
+    q.lng[atomicAdd(q.nlong, 1)] = (short)e;
+  }
+}
+
+// Entry e walked by the calling warp from its progress: 32 records a step,
+// the next step's records loaded before this step is tested.  Every lane
+// ends with the same transmission, lane 0 stores it.
+template <bool TRANS>
+__device__ __forceinline__ void walk_warp(const float4* __restrict__ lrec,
+                                          const WalkQueue& q, int e) {
+  const int lane = threadIdx.x & 31;
+  const int cnt = q.cnt[e];
+  const float u = q.u[e], v = q.v[e], te = q.te[e];
+  const float4* rp = lrec + 2 * (size_t)q.off[e];
+  float tr = q.tr[e];
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  if (lane < cnt) {
+    a = rp[2 * lane];
+    b = rp[2 * lane + 1];
+  }
+  for (int i0 = 0; i0 < cnt; i0 += 32) {
+    const int i = i0 + lane;
+    float4 na = a, nb = b;
+    if (i + 32 < cnt) {
+      na = rp[2 * (i + 32)];
+      nb = rp[2 * (i + 32) + 1];
+    }
+    bool stop = true, occ = false;
+    float f = 0.0f;
+    if (i < cnt) {
+      stop = b.x <= te;
+      occ = rec_occludes(a, u, v, te);
+      f = occ_factor<TRANS>(b.y);
+    }
+    const uint32_t sb = __ballot_sync(FULL, stop);
+    uint32_t ob = __ballot_sync(FULL, occ);
+    if (sb) ob &= (1u << (__ffs(sb) - 1)) - 1u;  // occluders before the stop
+    bool done = sb != 0u;
+    while (ob) {  // uniform: every lane holds the same ob and tr
+      const int j = __ffs(ob) - 1;
+      ob &= ob - 1u;
+      tr = tr * __shfl_sync(FULL, f, j);
+      if (tr <= TRANS_FLOOR) {
+        done = true;
+        break;
+      }
+    }
+    if (done) break;
+    a = na;
+    b = nb;
+  }
+  if (lane == 0) q.tr[e] = tr;
+}
+
+// The n entries of a round: first one thread each for up to WALK_SERIAL
+// records, then a warp for each walk left.  Every thread must call it; the
+// results are published when it returns.
+template <bool TRANS>
+__device__ __forceinline__ void walk_round(const float4* __restrict__ lrec,
+                                           const WalkQueue& q, int n) {
+  for (int e = threadIdx.x; e < n; e += P) walk_serial<TRANS>(lrec, q, e);
+  __syncthreads();
+  const int nl = *q.nlong;
+  if (nl == 0) return;  // uniform; the barrier above published the results
+  for (;;) {
+    int k = 0;
+    if ((threadIdx.x & 31) == 0) k = atomicAdd(q.next, 1);
+    k = __shfl_sync(FULL, k, 0);
+    if (k >= nl) break;
+    walk_warp<TRANS>(lrec, q, q.lng[k]);
+  }
+  __syncthreads();
 }
 
 // t of a camera ray against one cylinder body (typ 1) or ring disc (typ 2),
@@ -485,8 +704,11 @@ __device__ __forceinline__ void occ_trans(
 // sample s at st[(f * S + s) * P + pixel].
 enum { ST_OX, ST_OY, ST_OZ, ST_W, ST_AR, ST_AG, ST_AB, ST_CUMT, ST_N };
 
+// Two blocks an SM (at most 128 registers), but for the peel kernels
+// without AO sky lights: their walks are few and their per-ray chunk tests
+// would spill.
 template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(P, PEEL && !AO ? 1 : 2)
 mega_render_kernel(const float* __restrict__ params,
                    const float* __restrict__ lparams, // (nlights, 16)
                    const float* __restrict__ chunks,  // (nb, nchunks, 8, CH)
@@ -506,11 +728,20 @@ mega_render_kernel(const float* __restrict__ params,
                    float* __restrict__ gstate) {  // PEEL: state, or null
   __shared__ float sp[64];
   __shared__ float slp[AO ? MAX_LIGHTS * 16 : 1];
-  __shared__ float4 cand[CH];
-  __shared__ float red[P / 32];
+  __shared__ float4 cand[2][CH];
+  __shared__ float craw[4 * CH];
+  __shared__ float red[2][NW];
   __shared__ float4 ostage[OTHER ? 4 * OCB : 1];
-  __shared__ float ored[OTHER ? 5 * (P / 32) : 1];
+  __shared__ float ored[OTHER ? 5 * NW : 1];
   __shared__ int oscount;
+  // walks queued per round: fewer where the cyl/ring stage takes the room
+  constexpr int NQ = SHADOWS ? (OTHER ? WQ : 2 * WQ) : 1;
+  __shared__ int q_off[NQ], q_cnt[NQ];
+  __shared__ float q_u[NQ], q_v[NQ], q_te[NQ], q_tr[NQ];
+  __shared__ short q_lng[NQ];
+  __shared__ int q_wsum[NW], q_nlong, q_next;
+  const WalkQueue wq{q_off, q_cnt, q_u, q_v, q_te, q_tr, q_lng, &q_nlong,
+                     &q_next};
   float* dsm = nullptr;  // PEEL: the dynamic shared memory below
   if constexpr (PEEL) {
     extern __shared__ float dyn_smem[];
@@ -519,6 +750,7 @@ mega_render_kernel(const float* __restrict__ params,
 
   const int tile = tile0 + blockIdx.x;
   const int pix = threadIdx.x;
+  const int lane = pix & 31, warp = pix >> 5;
   if (pix < 64) sp[pix] = params[pix];
   if (AO)
     for (int i = pix; i < nlights * 16; i += P) slp[i] = lparams[i];
@@ -555,10 +787,10 @@ mega_render_kernel(const float* __restrict__ params,
   // transmission at sample 0's hit (one row of P per light l >= 1), then the
   // rays' peel state unless the caller gave it a device buffer
   int* wcnt = reinterpret_cast<int*>(dsm);
-  float* aot = dsm + P / 32;
+  float* aot = dsm + NW;
   const size_t SP = (size_t)S * P;
   float* st = gstate ? gstate + (size_t)blockIdx.x * ST_N * SP
-                     : dsm + P / 32 + (size_t)(nlights - 1) * P;
+                     : dsm + NW + (size_t)(nlights - 1) * P;
   const bool multi = PEEL && n_peel > 1;
   const bool camo = PERSP && !multi;  // every ray starts at the camera
   if (PEEL) {
@@ -572,6 +804,7 @@ mega_render_kernel(const float* __restrict__ params,
 
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   uint64_t aoblocked = 0;  // bit l: sky light l blocked at sample 0's hit
+  int rsel = 0;            // block_max's slot
   const int ngroups = (S + SG - 1) / SG;
   const int npeel = PEEL ? n_peel : 1;
   for (int peel = 0; peel < npeel; ++peel) {
@@ -580,11 +813,15 @@ mega_render_kernel(const float* __restrict__ params,
     float wmax = 0.0f;
     for (int s = 0; s < S; ++s)
       wmax = fmaxf(wmax, st[ST_W * SP + (size_t)s * P + pix]);
-    if (!(block_max(wmax, red) > 1e-4f)) break;  // uniform across the block
+    if (!(block_max(wmax, red, rsel) > 1e-4f)) break;  // uniform
   }
   for (int g = 0; g < ngroups; ++g) {
     const int s0 = g * S / ngroups;
     const int ns = (g + 1) * S / ngroups - s0;
+
+    // chunk 0 is fetched while the rays are made; the barrier of the block
+    // max below publishes it
+    if (nchunks > 0) chunk_fetch(tchunks, craw);
 
     // ---- ray generation --------------------------------------------------
     float rdx[SG], rdy[SG], rdz[SG], rox[SG], roy[SG], roz[SG];
@@ -646,27 +883,19 @@ mega_render_kernel(const float* __restrict__ params,
         need = fmaxf(need, multi ? tcap[k] + cum[k] : tcap[k]);
       }
     }
-    need = block_max(need, red);
+    if (nchunks > 0) chunk_stage(craw, cand[0], camo, ox, oy, oz);
+    need = block_max(need, red, rsel);
 
-    // ---- front-to-back chunk walk ------------------------------------------
+    // ---- front-to-back chunk walk, chunk c + 1 in flight while c is tested
+    int cbuf = 0;  // the buffer that holds chunk c
     for (int c = 0; c < nchunks; ++c) {
       if (!(tzmin[c] < need)) break;  // uniform across the block
-      if (pix < CH) {
-        const float* ch = tchunks + (size_t)c * 8 * CH;
-        const float cx = ch[pix], cy = ch[CH + pix], cz = ch[2 * CH + pix];
-        const float r = ch[3 * CH + pix];
-        if (camo) {
-          const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-          const float ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-          // a dead slot gets ccb = +inf, so its discriminant is negative
-          cand[pix] = make_float4(ocx, ocy, ocz, r > 0.0f ? ccb : INFINITY);
-        } else {
-          cand[pix] = make_float4(cx, cy, cz, r > 0.0f ? r * r : -INFINITY);
-        }
-      }
-      __syncthreads();
+      // need only falls, so a chunk it does not reach now is never tested
+      const bool ahead = c + 1 < nchunks && tzmin[c + 1] < need;
+      if (ahead) chunk_fetch(tchunks + (size_t)(c + 1) * 8 * CH, craw);
+      const float4* cc = cand[cbuf];
       for (int j = 0; j < CH; ++j) {
-        const float4 q = cand[j];
+        const float4 q = cc[j];
 #pragma unroll
         for (int k = 0; k < SG; ++k) {
           if (k < ns) {
@@ -696,10 +925,13 @@ mega_render_kernel(const float* __restrict__ params,
         if (k < ns)
           ln = fmaxf(ln, multi ? fminf(bt[k], tcap[k]) + cum[k]
                                : fminf(bt[k], tcap[k]));
-      need = block_max(ln, red);  // its barriers also retire this chunk's reads
+      if (ahead) chunk_stage(craw, cand[cbuf ^ 1], camo, ox, oy, oz);
+      // one barrier: the block max, chunk c + 1 published, chunk c retired
+      need = block_max(ln, red, rsel);
+      cbuf ^= 1;
     }
 
-    if constexpr (OTHER || PEEL) {
+    if constexpr (OTHER) {
       // ---- dense cyl/ring pass over the tile's records, in slot order -------
       for (int b0 = 0; b0 < ocount; b0 += OCB) {
         const int n = min(OCB, ocount - b0);
@@ -753,133 +985,200 @@ mega_render_kernel(const float* __restrict__ params,
           }
         }
       }
+    }
 
-      // ---- surfaces: hit point -> ro*, facing normal -> rd* ----------------
-      uint32_t missm = 0u;
+    // ---- surfaces: hit point -> ro*, facing normal -> rd* ------------------
+    uint32_t missm = 0u;
+#pragma unroll
+    for (int k = 0; k < SG; ++k) {
+      if (k < ns) {
+        float cx = 0.f, cy = 0.f, cz = 0.f, rw = 0.f;
+        float4 ax = make_float4(0.f, 0.f, 0.f, 0.f);  // sphere: typ 0
+        if (OTHER && bidx[k] >= OTHER_BIT) {
+          const float4* rp = trec + 4 * (size_t)(bidx[k] - OTHER_BIT);
+          const float4 a = rp[0];
+          cx = a.x;
+          cy = a.y;
+          cz = a.z;
+          rw = a.w;
+          ax = rp[2];
+        } else if (bidx[k] >= 0) {
+          const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
+          cx = rp[0];
+          cy = rp[CH];
+          cz = rp[2 * CH];
+          rw = rp[3 * CH];
+        }
+        const bool missed = (bt[k] >= BIG_DEPTH) || (rw <= 0.0f);
+        const float tsafe = missed ? 0.0f : bt[k];
+        const float hx = rox[k] + tsafe * rdx[k];
+        const float hy = roy[k] + tsafe * rdy[k];
+        const float hz = roz[k] + tsafe * rdz[k];
+        float nx = hx - cx, ny = hy - cy, nz = hz - cz;
+        if (ax.w == 1.0f) {  // cylinder: radial minus the axis part
+          const float sax = nx * ax.x + ny * ax.y + nz * ax.z;
+          nx = nx - sax * ax.x;
+          ny = ny - sax * ax.y;
+          nz = nz - sax * ax.z;
+        } else if (ax.w == 2.0f) {  // ring: the plane normal
+          nx = ax.x;
+          ny = ax.y;
+          nz = ax.z;
+        }
+        const float inv = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+        nx *= inv;
+        ny *= inv;
+        nz *= inv;
+        const float facing = nx * rdx[k] + ny * rdy[k] + nz * rdz[k];
+        const float flip = facing > 0.0f ? -1.0f : 1.0f;
+        rox[k] = hx;
+        roy[k] = hy;
+        roz[k] = hz;
+        rdx[k] = nx * flip;
+        rdy[k] = ny * flip;
+        rdz[k] = nz * flip;
+        if (missed) missm |= 1u << k;
+      }
+    }
+
+    // ---- the group's cell walks: the primary light per sample, on sample 0
+    // the AO sky lights.  tr[k] is sample k's transmission toward the
+    // primary light (0 or 1 without PEEL); with PEEL, aot holds each sky
+    // light's at sample 0, without it aoblocked the blocked ones' bits.
+    uint32_t litm = 0u, blkm = 0u;
+    float tr[SG];
+#pragma unroll
+    for (int k = 0; k < SG; ++k) {
+      tr[k] = 1.0f;
+      if (k < ns && !((missm >> k) & 1u) &&
+          rdx[k] * lx + rdy[k] * ly + rdz[k] * lz > MINCONTRIB)
+        litm |= 1u << k;
+    }
+    const bool ao0 = AO && SHADOWS && g == 0;
+    const bool miss0 = missm & 1u;
+    if constexpr (SHADOWS) {
+      // the walks this thread queues: primary bits k, sky-light bits l
+      uint32_t pm = 0u;
+      uint64_t am = 0ull;
+      float u, v, te;
 #pragma unroll
       for (int k = 0; k < SG; ++k) {
-        if (k < ns) {
-          float cx = 0.f, cy = 0.f, cz = 0.f, rw = 0.f;
-          float4 ax = make_float4(0.f, 0.f, 0.f, 0.f);  // sphere: typ 0
-          if (bidx[k] >= OTHER_BIT) {
-            const float4* rp = trec + 4 * (size_t)(bidx[k] - OTHER_BIT);
-            const float4 a = rp[0];
-            cx = a.x;
-            cy = a.y;
-            cz = a.z;
-            rw = a.w;
-            ax = rp[2];
-          } else if (bidx[k] >= 0) {
-            const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
-            cx = rp[0];
-            cy = rp[CH];
-            cz = rp[2 * CH];
-            rw = rp[3 * CH];
-          }
-          const bool missed = (bt[k] >= BIG_DEPTH) || (rw <= 0.0f);
-          const float tsafe = missed ? 0.0f : bt[k];
-          const float hx = rox[k] + tsafe * rdx[k];
-          const float hy = roy[k] + tsafe * rdy[k];
-          const float hz = roz[k] + tsafe * rdz[k];
-          float nx = hx - cx, ny = hy - cy, nz = hz - cz;
-          if (ax.w == 1.0f) {  // cylinder: radial minus the axis part
-            const float sax = nx * ax.x + ny * ax.y + nz * ax.z;
-            nx = nx - sax * ax.x;
-            ny = ny - sax * ax.y;
-            nz = nz - sax * ax.z;
-          } else if (ax.w == 2.0f) {  // ring: the plane normal
-            nx = ax.x;
-            ny = ax.y;
-            nz = ax.z;
-          }
-          const float inv = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-          nx *= inv;
-          ny *= inv;
-          nz *= inv;
-          const float facing = nx * rdx[k] + ny * rdy[k] + nz * rdz[k];
-          const float flip = facing > 0.0f ? -1.0f : 1.0f;
-          rox[k] = hx;
-          roy[k] = hy;
-          roz[k] = hz;
-          rdx[k] = nx * flip;
-          rdy[k] = ny * flip;
-          rdz[k] = nz * flip;
-          if (missed) missm |= 1u << k;
+        if ((litm >> k) & 1u) {
+          const int cell = light_cell(sp + 15, rox[k], roy[k], roz[k], grid_n,
+                                      0, eps, u, v, te);
+          if (cell_gate(lcnt, lkmax, cell, te)) pm |= 1u << k;
         }
       }
-
-      // ---- cell walks: the primary light per sample, the AO sky lights on ----
-      // sample 0.  No barrier falls between them, so the walks of one thread
-      // overlap the others' whatever their lengths.
-      // With PEEL, tr[k] holds sample k's transmission toward the primary
-      // light and aot each sky light's at sample 0, in place of the bits.
-      uint32_t litm = 0u, blkm = 0u;
-      float tr[SG];
-#pragma unroll
-      for (int k = 0; k < SG; ++k) {
-        tr[k] = 1.0f;
-        if (k < ns) {
-          const float inten = rdx[k] * lx + rdy[k] * ly + rdz[k] * lz;
-          if (inten > MINCONTRIB && !((missm >> k) & 1u)) {
-            litm |= 1u << k;
-            if (SHADOWS && PEEL)
-              tr[k] = light_trans(sp + 15, rox[k], roy[k], roz[k], grid_n, 0,
-                                  eps, lrec, loffs, lcnt, lkmax);
-            else if (SHADOWS && light_blocked(sp + 15, rox[k], roy[k], roz[k],
-                                              grid_n, 0, eps, lrec, loffs,
-                                              lcnt, lkmax))
-              blkm |= 1u << k;
-          }
-        }
-      }
-      const bool ao0 = AO && SHADOWS && g == 0;
-      const bool miss0 = missm & 1u;
       if (ao0) {
         for (int l = 1; l < nlights; ++l) {
           const float* lp = slp + 16 * l;
+          if (PEEL) aot[(size_t)(l - 1) * P + pix] = 1.0f;
           const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
-          if (PEEL)
-            aot[(size_t)(l - 1) * P + pix] =
-                il > MINCONTRIB && !miss0
-                    ? light_trans(lp, rox[0], roy[0], roz[0], grid_n,
-                                  l * grid_n * grid_n, eps, lrec, loffs, lcnt,
-                                  lkmax)
-                    : 1.0f;
-          else if (il > MINCONTRIB && !miss0 &&
-                   light_blocked(lp, rox[0], roy[0], roz[0], grid_n,
-                                 l * grid_n * grid_n, eps, lrec, loffs, lcnt,
-                                 lkmax))
-            aoblocked |= 1ull << l;
+          if (il > MINCONTRIB && !miss0) {
+            const int cell = light_cell(lp, rox[0], roy[0], roz[0], grid_n,
+                                        l * grid_n * grid_n, eps, u, v, te);
+            if (cell_gate(lcnt, lkmax, cell, te)) am |= 1ull << l;
+          }
         }
       }
-
-      // ---- occluder tables: with PEEL for the points with a transmission
-      // > 0, else for those their cell walk left clear ----------------------
-      if constexpr (PEEL && OTHER) {
-        if (SHADOWS && nocc > 0) {
-          uint32_t testm = 0u;
+      // each thread's first entry: an exclusive prefix over the block
+      const int mine = __popc(pm) + __popcll(am);
+      int incl = mine;
 #pragma unroll
-          for (int k = 0; k < SG; ++k)
-            if (tr[k] > 0.0f) testm |= litm & (1u << k);
-          occ_trans(sp + 15, occ, nocc, eps, litm, testm, rox, roy, roz, tr,
-                    ostage, ored, wcnt);
-          if (ao0) {
-            for (int l = 1; l < nlights; ++l) {
-              const float* lp = slp + 16 * l;
-              const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
-              const uint32_t lit0 = (il > MINCONTRIB && !miss0) ? 1u : 0u;
-              float t0[SG];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += t;
+      }
+      if (lane == 31) q_wsum[warp] = incl;
+      __syncthreads();
+      int first = incl - mine, total = 0;
 #pragma unroll
-              for (int k = 0; k < SG; ++k) t0[k] = 1.0f;
-              t0[0] = aot[(size_t)(l - 1) * P + pix];
-              occ_trans(lp, occ + 4 * (size_t)l * nocc, nocc, eps, lit0,
-                        t0[0] > 0.0f ? lit0 : 0u, rox, roy, roz, t0, ostage,
-                        ored, wcnt);
-              aot[(size_t)(l - 1) * P + pix] = t0[0];
+      for (int w = 0; w < NW; ++w) {
+        const int t = q_wsum[w];
+        first += w < warp ? t : 0;
+        total += t;
+      }
+      // rounds of NQ walks (total is uniform); a round's entries stay until
+      // their owners have read the results
+      for (int r0 = 0; r0 < total; r0 += NQ) {
+        if (r0 > 0) __syncthreads();
+        int j = first;
+        if (first < r0 + NQ && first + mine > r0) {
+#pragma unroll
+          for (int k = 0; k < SG; ++k) {
+            if ((pm >> k) & 1u) {
+              if (j >= r0 && j < r0 + NQ)
+                queue_walk(wq, j - r0, sp + 15, rox[k], roy[k], roz[k],
+                           grid_n, 0, eps, loffs, lcnt);
+              ++j;
+            }
+          }
+          for (int l = 1; l < nlights && am >> l; ++l) {
+            if ((am >> l) & 1ull) {
+              if (j >= r0 && j < r0 + NQ)
+                queue_walk(wq, j - r0, slp + 16 * l, rox[0], roy[0], roz[0],
+                           grid_n, l * grid_n * grid_n, eps, loffs, lcnt);
+              ++j;
             }
           }
         }
-      } else if (OTHER && SHADOWS && nocc > 0) {
+        if (pix == 0) q_nlong = q_next = 0;
+        __syncthreads();
+        walk_round<PEEL>(lrec, wq, min(NQ, total - r0));
+        j = first;
+#pragma unroll
+        for (int k = 0; k < SG; ++k) {
+          if ((pm >> k) & 1u) {
+            if (j >= r0 && j < r0 + NQ) {
+              tr[k] = q_tr[j - r0];
+              if (!PEEL && tr[k] == 0.0f) blkm |= 1u << k;
+            }
+            ++j;
+          }
+        }
+        for (int l = 1; l < nlights && am >> l; ++l) {
+          if ((am >> l) & 1ull) {
+            if (j >= r0 && j < r0 + NQ) {
+              const float t = q_tr[j - r0];
+              if (PEEL)
+                aot[(size_t)(l - 1) * P + pix] = t;
+              else if (t == 0.0f)
+                aoblocked |= 1ull << l;
+            }
+            ++j;
+          }
+        }
+      }
+    }
+
+    // ---- occluder tables: with PEEL for the points with a transmission
+    // > 0, else for those their cell walk left clear ----------------------
+    if constexpr (PEEL && OTHER) {
+      if (SHADOWS && nocc > 0) {
+        uint32_t testm = 0u;
+#pragma unroll
+        for (int k = 0; k < SG; ++k)
+          if (tr[k] > 0.0f) testm |= litm & (1u << k);
+        occ_trans(sp + 15, occ, nocc, eps, litm, testm, rox, roy, roz, tr,
+                  ostage, ored, wcnt);
+        if (ao0) {
+          for (int l = 1; l < nlights; ++l) {
+            const float* lp = slp + 16 * l;
+            const float il = rdx[0] * lp[0] + rdy[0] * lp[1] + rdz[0] * lp[2];
+            const uint32_t lit0 = (il > MINCONTRIB && !miss0) ? 1u : 0u;
+            float t0[SG];
+#pragma unroll
+            for (int k = 0; k < SG; ++k) t0[k] = 1.0f;
+            t0[0] = aot[(size_t)(l - 1) * P + pix];
+            occ_trans(lp, occ + 4 * (size_t)l * nocc, nocc, eps, lit0,
+                      t0[0] > 0.0f ? lit0 : 0u, rox, roy, roz, t0, ostage,
+                      ored, wcnt);
+            aot[(size_t)(l - 1) * P + pix] = t0[0];
+          }
+        }
+      }
+    } else if constexpr (OTHER) {
+      if (SHADOWS && nocc > 0) {
         blkm |= occ_blocked(sp + 15, occ, nocc, eps, litm, litm & ~blkm, rox,
                             roy, roz, ostage, ored, &oscount);
         if (ao0) {
@@ -894,130 +1193,63 @@ mega_render_kernel(const float* __restrict__ params,
           }
         }
       }
-
-      // ---- shading, per sample, lights in order ------------------------------
-#pragma unroll
-      for (int k = 0; k < SG; ++k) {
-        if (k < ns) {
-          float cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f;
-          if (bidx[k] >= OTHER_BIT) {
-            const float4 c = trec[4 * (size_t)(bidx[k] - OTHER_BIT) + 1];
-            cr = c.x;
-            cg = c.y;
-            cb = c.z;
-            ca = c.w;
-          } else if (bidx[k] >= 0) {
-            const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
-            cr = rp[4 * CH];
-            cg = rp[5 * CH];
-            cb = rp[6 * CH];
-            ca = rp[7 * CH];
-          }
-          const bool missed = (missm >> k) & 1u;
-          const float nx = rdx[k], ny = rdy[k], nz = rdz[k];
-          const float inten = nx * lx + ny * ly + nz * lz;
-          const float lit = ((litm >> k) & 1u) ? 1.0f : 0.0f;
-          const float filt = PEEL ? tr[k] : (((blkm >> k) & 1u) ? 0.0f : 1.0f);
-          float sh = lit * inten * lightcol * filt;
-          if (AO) {
-            for (int l = 1; l < nlights; ++l) {
-              const float* lp = slp + 16 * l;
-              const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
-              const float ll = (il > MINCONTRIB && !missed) ? 1.0f : 0.0f;
-              float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
-              if (PEEL) fl = SHADOWS ? aot[(size_t)(l - 1) * P + pix] : 1.0f;
-              sh = sh + ll * il * lp[12] * fl;
-            }
-          }
-          const float shade = 0.8f * sh + ambient;
-          if constexpr (PEEL) {
-            // composite: the sums gain W a c, W becomes W (1 - a), and the
-            // next peel starts from the hit point
-            float* o = st + (size_t)(s0 + k) * P + pix;
-            const float w = o[ST_W * SP];
-            const float a = missed ? 1.0f : ca;
-            o[ST_AR * SP] = o[ST_AR * SP] + w * a * (missed ? bgr : cr * shade);
-            o[ST_AG * SP] = o[ST_AG * SP] + w * a * (missed ? bgg : cg * shade);
-            o[ST_AB * SP] = o[ST_AB * SP] + w * a * (missed ? bgb : cb * shade);
-            o[ST_W * SP] = w * (1.0f - a);
-            if (multi)
-              o[ST_CUMT * SP] = o[ST_CUMT * SP] + (missed ? 0.0f : bt[k]) + eps;
-            o[ST_OX * SP] = rox[k];
-            o[ST_OY * SP] = roy[k];
-            o[ST_OZ * SP] = roz[k];
-          } else {
-            ar = ar + (missed ? bgr : cr * shade);
-            ag = ag + (missed ? bgg : cg * shade);
-            ab = ab + (missed ? bgb : cb * shade);
-          }
-        }
-      }
-      continue;
     }
 
-    // ---- shading + shadow, per sample --------------------------------------
+    // ---- shading, per sample, lights in order ------------------------------
 #pragma unroll
     for (int k = 0; k < SG; ++k) {
       if (k < ns) {
-        float cx = 0.f, cy = 0.f, cz = 0.f, rw = 0.f, cr = 0.f, cg = 0.f, cb = 0.f;
-        if (bidx[k] >= 0) {
+        float cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f;
+        if (OTHER && bidx[k] >= OTHER_BIT) {
+          const float4 c = trec[4 * (size_t)(bidx[k] - OTHER_BIT) + 1];
+          cr = c.x;
+          cg = c.y;
+          cb = c.z;
+          ca = c.w;
+        } else if (bidx[k] >= 0) {
           const float* rp = tchunks + (size_t)(bidx[k] / CH) * 8 * CH + (bidx[k] % CH);
-          cx = rp[0];
-          cy = rp[CH];
-          cz = rp[2 * CH];
-          rw = rp[3 * CH];
           cr = rp[4 * CH];
           cg = rp[5 * CH];
           cb = rp[6 * CH];
+          ca = rp[7 * CH];
         }
-        const bool missed = (bt[k] >= BIG_DEPTH) || (rw <= 0.0f);
-        const float tsafe = missed ? 0.0f : bt[k];
-        const float hx = rox[k] + tsafe * rdx[k];
-        const float hy = roy[k] + tsafe * rdy[k];
-        const float hz = roz[k] + tsafe * rdz[k];
-        float nx = hx - cx, ny = hy - cy, nz = hz - cz;
-        const float inv = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-        nx *= inv;
-        ny *= inv;
-        nz *= inv;
-        const float facing = nx * rdx[k] + ny * rdy[k] + nz * rdz[k];
-        const float flip = facing > 0.0f ? -1.0f : 1.0f;
-        nx *= flip;
-        ny *= flip;
-        nz *= flip;
-        if (AO && SHADOWS && k == 0 && g == 0) {
-          // sample 0: the shared occlusion of every sky light
-          for (int l = 1; l < nlights; ++l) {
-            const float* lp = slp + 16 * l;
-            const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
-            if (il > MINCONTRIB && !missed &&
-                light_blocked(lp, hx, hy, hz, grid_n, l * grid_n * grid_n,
-                              eps, lrec, loffs, lcnt, lkmax))
-              aoblocked |= 1ull << l;
-          }
-        }
+        const bool missed = (missm >> k) & 1u;
+        const float nx = rdx[k], ny = rdy[k], nz = rdz[k];
         const float inten = nx * lx + ny * ly + nz * lz;
-        const bool litb = (inten > MINCONTRIB) && !missed;
-        float filt = 1.0f;
-        if (SHADOWS && litb &&
-            light_blocked(sp + 15, hx, hy, hz, grid_n, 0, eps, lrec, loffs,
-                          lcnt, lkmax))
-          filt = 0.0f;
-        const float lit = litb ? 1.0f : 0.0f;
+        const float lit = ((litm >> k) & 1u) ? 1.0f : 0.0f;
+        const float filt = PEEL ? tr[k] : (((blkm >> k) & 1u) ? 0.0f : 1.0f);
         float sh = lit * inten * lightcol * filt;
         if (AO) {
           for (int l = 1; l < nlights; ++l) {
             const float* lp = slp + 16 * l;
             const float il = nx * lp[0] + ny * lp[1] + nz * lp[2];
             const float ll = (il > MINCONTRIB && !missed) ? 1.0f : 0.0f;
-            const float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+            float fl = ((aoblocked >> l) & 1ull) ? 0.0f : 1.0f;
+            if (PEEL) fl = SHADOWS ? aot[(size_t)(l - 1) * P + pix] : 1.0f;
             sh = sh + ll * il * lp[12] * fl;
           }
         }
         const float shade = 0.8f * sh + ambient;
-        ar = ar + (missed ? bgr : cr * shade);
-        ag = ag + (missed ? bgg : cg * shade);
-        ab = ab + (missed ? bgb : cb * shade);
+        if constexpr (PEEL) {
+          // composite: the sums gain W a c, W becomes W (1 - a), and the
+          // next peel starts from the hit point
+          float* o = st + (size_t)(s0 + k) * P + pix;
+          const float w = o[ST_W * SP];
+          const float a = missed ? 1.0f : ca;
+          o[ST_AR * SP] = o[ST_AR * SP] + w * a * (missed ? bgr : cr * shade);
+          o[ST_AG * SP] = o[ST_AG * SP] + w * a * (missed ? bgg : cg * shade);
+          o[ST_AB * SP] = o[ST_AB * SP] + w * a * (missed ? bgb : cb * shade);
+          o[ST_W * SP] = w * (1.0f - a);
+          if (multi)
+            o[ST_CUMT * SP] = o[ST_CUMT * SP] + (missed ? 0.0f : bt[k]) + eps;
+          o[ST_OX * SP] = rox[k];
+          o[ST_OY * SP] = roy[k];
+          o[ST_OZ * SP] = roz[k];
+        } else {
+          ar = ar + (missed ? bgr : cr * shade);
+          ag = ag + (missed ? bgg : cg * shade);
+          ab = ab + (missed ? bgb : cb * shade);
+        }
       }
     }
   }
@@ -1037,49 +1269,100 @@ mega_render_kernel(const float* __restrict__ params,
   tout[2 * P + pix] = ab * inv_s;
 }
 
+// Dynamic shared memory of a PEEL launch: warp counts, sky-light rows, and
+// the peel state unless it lives in a device buffer.
+size_t peel_smem(int S, int nlights, bool gstate) {
+  return sizeof(float) * (NW + (size_t)(nlights - 1) * P +
+                          (gstate ? 0 : (size_t)ST_N * S * P));
+}
+
+struct Args {
+  const float *params, *lparams, *chunks, *zmin, *lrec;
+  const int *loffs, *lcnt;
+  const float* lkmax;
+  const float* orec;
+  const int *ooffs, *ocnt;
+  const float* occ;
+  float* out;
+  int ntiles, tile0, nchunks, tiles_x, S;
+  uint32_t seed;
+  int grid_n, nlights, nocc;
+  float eps, inv_s;
+  int n_peel;
+  float* gstate;
+};
+
 template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
-cudaError_t launch(cudaStream_t st, int ntiles, int tile0, const float* params,
-                   const float* lparams, const float* chunks,
-                   const float* zmin, const float* lrec, const int* loffs,
-                   const int* lcnt, const float* lkmax, const float* orec,
-                   const int* ooffs, const int* ocnt, const float* occ,
-                   float* out, int nchunks, int tiles_x, int S, uint32_t seed,
-                   int grid_n, int nlights, int nocc, float eps, float inv_s,
-                   int n_peel, float* gstate) {
+cudaError_t launch(cudaStream_t st, const Args& a) {
   auto kernel = mega_render_kernel<PERSP, SHADOWS, AO, OTHER, PEEL>;
-  size_t dyn = 0;  // PEEL: warp counts, sky-light rows, state
-  if (PEEL) {
-    dyn = sizeof(float) * (P / 32 + (size_t)(nlights - 1) * P +
-                           (gstate ? 0 : (size_t)ST_N * S * P));
-    if (dyn > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-      if (e != cudaSuccess) return e;
-    }
+  const size_t dyn = PEEL ? peel_smem(a.S, a.nlights, a.gstate != nullptr) : 0;
+  if (dyn > 0) {  // static + dynamic past 48 KB needs the opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return e;
   }
-  kernel<<<ntiles, P, dyn, st>>>(
-      params, lparams, chunks, zmin, reinterpret_cast<const float4*>(lrec),
-      loffs, lcnt, lkmax, reinterpret_cast<const float4*>(orec), ooffs, ocnt,
-      reinterpret_cast<const float4*>(occ), out, tile0, nchunks, tiles_x, S,
-      seed, grid_n, nlights, nocc, eps, inv_s, n_peel, gstate);
+  kernel<<<a.ntiles, P, dyn, st>>>(
+      a.params, a.lparams, a.chunks, a.zmin,
+      reinterpret_cast<const float4*>(a.lrec), a.loffs, a.lcnt, a.lkmax,
+      reinterpret_cast<const float4*>(a.orec), a.ooffs, a.ocnt,
+      reinterpret_cast<const float4*>(a.occ), a.out, a.tile0, a.nchunks,
+      a.tiles_x, a.S, a.seed, a.grid_n, a.nlights, a.nocc, a.eps, a.inv_s,
+      a.n_peel, a.gstate);
   return cudaGetLastError();
 }
 
-using Launch = decltype(&launch<true, true, true, true, true>);
-
-template <bool PERSP, bool OTHER, bool PEEL>
-Launch pick(bool shadows, bool ao) {
-  if (shadows)
-    return ao ? &launch<PERSP, true, true, OTHER, PEEL>
-              : &launch<PERSP, true, false, OTHER, PEEL>;
-  return ao ? &launch<PERSP, false, true, OTHER, PEEL>
-            : &launch<PERSP, false, false, OTHER, PEEL>;
+// Registers, local (spill) bytes and static shared bytes of one variant, and
+// the blocks an SM holds at once with dyn bytes of dynamic shared memory.
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
+cudaError_t attrs(size_t dyn, int* out) {
+  auto kernel = mega_render_kernel<PERSP, SHADOWS, AO, OTHER, PEEL>;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  if (dyn > 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
+    if (e != cudaSuccess) return e;
+  }
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, P, dyn);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = blocks;
+  return e;
 }
 
-template <bool OTHER, bool PEEL>
-Launch pick(bool perspective, bool shadows, bool ao) {
-  return perspective ? pick<true, OTHER, PEEL>(shadows, ao)
-                     : pick<false, OTHER, PEEL>(shadows, ao);
+struct Variant {
+  cudaError_t (*launch)(cudaStream_t, const Args&);
+  cudaError_t (*attrs)(size_t, int*);
+};
+
+template <bool PERSP, bool SHADOWS, bool AO, bool OTHER, bool PEEL>
+Variant variant() {
+  return {&launch<PERSP, SHADOWS, AO, OTHER, PEEL>,
+          &attrs<PERSP, SHADOWS, AO, OTHER, PEEL>};
+}
+
+template <bool PERSP, bool OTHER, bool PEEL>
+Variant pick(bool shadows, bool ao) {
+  if (shadows)
+    return ao ? variant<PERSP, true, true, OTHER, PEEL>()
+              : variant<PERSP, true, false, OTHER, PEEL>();
+  return ao ? variant<PERSP, false, true, OTHER, PEEL>()
+            : variant<PERSP, false, false, OTHER, PEEL>();
+}
+
+Variant pick(bool perspective, bool shadows, bool ao, bool other, bool peel) {
+  if (other)
+    return peel ? (perspective ? pick<true, true, true>(shadows, ao)
+                               : pick<false, true, true>(shadows, ao))
+                : (perspective ? pick<true, true, false>(shadows, ao)
+                               : pick<false, true, false>(shadows, ao));
+  return peel ? (perspective ? pick<true, false, true>(shadows, ao)
+                             : pick<false, false, true>(shadows, ao))
+              : (perspective ? pick<true, false, false>(shadows, ao)
+                             : pick<false, false, false>(shadows, ao));
 }
 
 }  // namespace
@@ -1114,14 +1397,22 @@ extern "C" int mega_render_launch(const float* params, const float* lparams,
                                   void* stream) {
   if (nlights < 1 || nlights > MAX_LIGHTS || nocc < 0 || (peel && n_peel < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ao = nlights > 1, sh = shadows != 0, pr = perspective != 0;
-  Launch go = other ? (peel ? pick<true, true>(pr, sh, ao)
-                            : pick<true, false>(pr, sh, ao))
-                    : (peel ? pick<false, true>(pr, sh, ao)
-                            : pick<false, false>(pr, sh, ao));
-  return static_cast<int>(go(st, ntiles, tile0, params, lparams, chunks, zmin,
-                             lrec, loffs, lcnt, lkmax, orec, ooffs, ocnt, occ,
-                             out, nchunks, tiles_x, S, seed, grid_n, nlights,
-                             nocc, eps, inv_s, n_peel, state));
+  const Args a{params, lparams, chunks, zmin, lrec, loffs, lcnt, lkmax,
+               orec, ooffs, ocnt, occ, out, ntiles, tile0, nchunks, tiles_x,
+               S, seed, grid_n, nlights, nocc, eps, inv_s, n_peel, state};
+  const Variant v = pick(perspective != 0, shadows != 0, nlights > 1,
+                         other != 0, peel != 0);
+  return static_cast<int>(v.launch(static_cast<cudaStream_t>(stream), a));
+}
+
+// out[0..4) = registers, local bytes, static shared bytes and blocks an SM
+// of the variant a launch with these flags, S and nlights picks (the peel
+// state in shared memory); returns a CUDA error code.
+extern "C" int mega_render_attrs(int perspective, int shadows, int ao,
+                                 int other, int peel, int S, int nlights,
+                                 int* out) {
+  const Variant v = pick(perspective != 0, shadows != 0, ao != 0, other != 0,
+                         peel != 0);
+  return static_cast<int>(
+      v.attrs(peel ? peel_smem(S, nlights, false) : 0, out));
 }

@@ -1,7 +1,8 @@
 // Device code shared by the render kernels (mega_render.cu, tile_kernels.cu):
 // the constants of the candidate chunks, the sphere root of the chunk walk,
-// the walks over one light-grid cell's shadow records (binary, and the
-// transmission walk of translucent scenes), and a block-wide max.
+// the serial walk over one light-grid cell's shadow records (the shadow
+// filter's; mega_render.cu queues its walks and keeps its own), and a
+// block-wide max.
 // Every translation unit is compiled with -fmad=false, so a*b+c rounds twice
 // here as in the plain torch versions.
 #pragma once
@@ -47,29 +48,6 @@ __device__ __forceinline__ bool walk_cell(const float4* __restrict__ rp,
     if (s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q)) return true;
   }
   return false;
-}
-
-// The transmission of the point through the cnt shadow records at rp (the
-// same records and order as walk_cell): each occluder multiplies it by
-// 1 - alpha, or by 0 at alpha >= 0.99999.  The walk ends once key <= tau +
-// eps or once the transmission is <= 1e-3.
-__device__ __forceinline__ float walk_cell_trans(const float4* __restrict__ rp,
-                                                 int cnt, float u, float v,
-                                                 float tau_eps) {
-  float tr = 1.0f;
-  for (int i = 0; i < cnt; ++i) {
-    const float4 a = rp[2 * i];      // cu, cv, ck, r
-    const float4 b = rp[2 * i + 1];  // key, alpha, 0, 0
-    if (b.x <= tau_eps) break;
-    const float du = a.x - u, dv = a.y - v;
-    const float s2 = a.w * a.w - (du * du + dv * dv);
-    const float q = tau_eps - a.z;
-    if (s2 > 0.0f && a.w > 0.0f && (q < 0.0f || s2 > q * q)) {
-      tr = tr * (b.y >= 0.99999f ? 0.0f : 1.0f - b.y);
-      if (tr <= 1e-3f) break;
-    }
-  }
-  return tr;
 }
 
 // Block-wide max over NT threads (a multiple of 32); every thread gets the

@@ -41,6 +41,7 @@ _MEGA_ARGTYPES = (
     + [_c.c_int, _c.c_int, _c.c_int]                   # perspective, shadows, other
     + [_c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p]   # peel, n_peel, state, stream
 )
+_ATTRS_ARGTYPES = [_c.c_int] * 7 + [_c.c_void_p]       # flags, S, nlights, out
 _HIT_ARGTYPES = (
     [_c.c_void_p] * 7                                  # o, d, tcap, zmin, chunks, best_t, rec
     + [_c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_void_p]   # nb, R, nchunks, eps, stream
@@ -53,7 +54,8 @@ _SHADOW_ARGTYPES = (
 _HEADERS = ("render_common.cuh",)
 # library -> (source, {entry point: argtypes})
 _LIBRARIES = {
-    "mega_render": ("mega_render.cu", {"mega_render_launch": _MEGA_ARGTYPES}),
+    "mega_render": ("mega_render.cu", {"mega_render_launch": _MEGA_ARGTYPES,
+                                       "mega_render_attrs": _ATTRS_ARGTYPES}),
     "tile_kernels": ("tile_kernels.cu", {
         "closest_hit_spheres_launch": _HIT_ARGTYPES,
         "shadow_filter_launch": _SHADOW_ARGTYPES,

@@ -69,7 +69,7 @@ __all__ = [
     "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
     "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
     "plain_work", "count_work", "render_image_mega", "stack_lights",
-    "launches", "reset_launches",
+    "kernel_attrs", "launches", "reset_launches",
 ]
 
 BIG = 1e18
@@ -613,8 +613,9 @@ def _shadow_blocked(lrec, loffs, lcnt, lkmax, u, v, tau, cell, eps: float,
     With ``trans`` it returns each ray's transmission instead: every
     occluder multiplies it by 1 - alpha (record row 5; 0 at alpha >=
     OPAQUE_ALPHA), in record order, and the walk retires at key <= tau + eps
-    or once the transmission is at or below TRANS_FLOOR
-    (``render_common.cuh:walk_cell_trans``)."""
+    or once the transmission is at or below TRANS_FLOOR (the kernel's
+    queued walks, ``csrc/mega_render.cu:walk_serial`` and ``walk_warp``,
+    stop at the same record)."""
     out = torch.ones_like(tau) if trans else torch.zeros_like(tau)
     tau_eps = tau + eps
     cnt = lcnt[cell].to(torch.int64)
@@ -1055,6 +1056,25 @@ def mega_render_cuda(chunk_data, zmin, lights, params, seed, *, S: int,
                     f"mega_render kernel launch failed: CUDA error {rc}")
             launches += 1
     return out
+
+
+def kernel_attrs(*, perspective: bool, shadows: bool, ao: bool, other: bool,
+                 peel: bool, S: int = 1, nlights: int = 1) -> dict:
+    """The compiled kernel variant a launch with these flags picks:
+    registers a thread, local (spill) bytes a thread, static shared bytes,
+    and the blocks an SM holds at once (the CUDA occupancy calculator, with
+    a peel launch's state in shared memory for S samples and nlights
+    lights).  Needs the card."""
+    from ._build import load_mega_render
+
+    out = (ctypes.c_int * 4)()
+    rc = load_mega_render().mega_render_attrs(
+        int(perspective), int(shadows), int(ao), int(other), int(peel), S,
+        nlights, ctypes.c_void_p(ctypes.addressof(out)))
+    if rc != 0:
+        raise RuntimeError(f"mega_render_attrs failed: CUDA error {rc}")
+    return dict(registers=out[0], local_bytes=out[1], static_smem=out[2],
+                blocks_per_sm=out[3])
 
 
 def count_work(fn, *args, **kwargs) -> dict:

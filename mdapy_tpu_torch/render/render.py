@@ -41,6 +41,7 @@ and candidate records past the memory budget (B1f).
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -164,9 +165,16 @@ def _scene_aabb(scene):
 class TachyonRender:
     """Ray tracer with the reference renderer's look, on PyTorch.
 
-    Parameters mirror ``mdapy_tpu.TachyonRender``; ``backend`` is "cuda"
-    (the hand kernel; raises when no card is visible) or "cpu" (plain torch
-    versions, f32)."""
+    Parameters mirror ``mdapy_tpu.TachyonRender``.  ``backend`` is "cuda"
+    (the hand kernels; raises when no card is visible), "cpu" (their plain
+    torch versions, f32), "gpu" (the reference renderer's name for "cuda")
+    or "auto" ("cuda" when a card is visible, else "cpu"); the resolved
+    name is ``self.backend``.  ``verbosity`` "timing" or "debug" prints the
+    resolved backend and, after each ``render``, its phases; every
+    ``render`` fills ``last_timings`` with host seconds per phase
+    ("prepare", "scene_build", "accel_build", "ao_accel_build", "trace",
+    "image_out", the JAX renderer's names), the card synchronised at each
+    phase's end at those verbosities only."""
 
     def __init__(
         self,
@@ -181,16 +189,26 @@ class TachyonRender:
         direct_light_intensity: float = 0.9,
         background: tuple = (0.0, 0.0, 0.0),
         seed: int = 0,
+        verbosity: str = "min",
     ):
-        backend = backend.lower().strip()
-        if backend not in ("cuda", "cpu"):
-            raise ValueError(f"backend must be 'cuda' or 'cpu', got {backend!r}")
+        asked = backend.lower().strip()
+        if asked not in ("cuda", "cpu", "gpu", "auto"):
+            raise ValueError(
+                f"backend must be 'cuda', 'cpu', 'gpu' or 'auto', got {backend!r}")
+        if verbosity not in ("min", "timing", "debug"):
+            raise ValueError("verbosity must be 'min', 'timing' or 'debug'")
+        backend = {"gpu": "cuda", "auto": "cuda" if torch.cuda.is_available()
+                   else "cpu"}.get(asked, asked)
         if backend == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                "TachyonRender(backend='cuda') needs a CUDA device, and "
+                f"TachyonRender(backend={asked!r}) needs a CUDA device, and "
                 "torch.cuda.is_available() is False"
             )
         self._backend = backend
+        self.verbosity = verbosity
+        self.last_timings: dict = {}
+        if verbosity != "min":
+            print(f"[TachyonRender] backend {asked!r} -> {backend!r}")
         self._device = torch.device("cuda" if backend == "cuda" else "cpu")
         bg = tuple(float(v) for v in background)
         self._bg_a = bg[3] if len(bg) > 3 else 1.0
@@ -282,12 +300,21 @@ class TachyonRender:
         the scene changes (the tables are world-space, as the JAX renderer's
         scene-keyed AO cache holds them, render.py:563-626)."""
         if scene_key != self._ao_key:
+            t0 = time.perf_counter()
             cfg = self._cfg
             rmax = float(radii.max()) if len(radii) else 0.0
             self._ao = build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
                                        rmax, grid=LIGHT_GRID, table=table)
             self._ao_key = scene_key
+            self._sync()
+            self.last_timings["ao_accel_build"] = time.perf_counter() - t0
         return self._ao
+
+    def _sync(self) -> None:
+        """Wait for the card at a phase's end when phases are printed, so
+        that ``last_timings`` holds the card's time and not the enqueue's."""
+        if self.verbosity != "min" and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
 
     def _route(self, bins, n_other: int, n_sph: int, alpha: bool) -> str:
         """The renderer a frame takes, as the JAX renderer picks it
@@ -428,7 +455,18 @@ class TachyonRender:
         a tensor on the render device, with no host round trip — the serving
         path when the consumer lives on the device.  It does so on every
         route; the JAX renderer offers it on the megakernel route only
-        (render.py:687-689) and returns the host image on the others."""
+        (render.py:687-689) and returns the host image on the others.
+        ``last_timings`` gets the host seconds of each phase."""
+        timings: dict = {}
+        self.last_timings = timings
+        t0 = time.perf_counter()
+
+        def mark(phase, start):
+            self._sync()
+            now = time.perf_counter()
+            timings[phase] = timings.get(phase, 0.0) + (now - start)
+            return now
+
         positions = np.ascontiguousarray(positions, dtype=np.float64)
         colors = np.ascontiguousarray(colors, dtype=np.float32)
         radii = np.ascontiguousarray(radii, dtype=np.float32)
@@ -453,11 +491,13 @@ class TachyonRender:
                 positions, max_radius=float(radii.max()) if len(radii) else 0.0)
 
         cfg = self._cfg
+        t0 = mark("prepare", t0)
         scene_key, entry = self._scene_for(
             (positions, colors, radii, bond_edges, bond_colors, box_edges),
             (float(bond_radius), tuple(bond_color), float(box_edge_radius),
              tuple(box_color)))
         scene = entry[0]
+        t0 = mark("scene_build", t0)
         if cfg.ao_enabled and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES:
             raise NotImplementedError(
                 f"ambient occlusion on {scene.sph_center.shape[0]} padded "
@@ -466,6 +506,8 @@ class TachyonRender:
             )
         route, accel, other = self._accel_for(
             scene_key, entry, camera, int(width), int(height), radii)
+        t0 = mark("accel_build", t0)
+        timings["accel_build"] -= timings.get("ao_accel_build", 0.0)
         if route == "mega":
             frame, bins, chunk_data, lights, params = accel
             S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
@@ -487,7 +529,9 @@ class TachyonRender:
             if device_output:
                 img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
                                     255.0).to(torch.uint8)
+        t0 = mark("trace", t0)
         if device_output:
+            self._print_timings()
             return img_f
 
         img = np.empty((height, width, 4), dtype=np.uint8)
@@ -497,10 +541,19 @@ class TachyonRender:
             bg = np.array(cfg.background, dtype=np.float32) * 255.0
             diff = np.abs(img[:, :, :3].astype(np.float32) - bg).max(axis=2)
             img[:, :, 3] = np.where(diff < 1.5, 0, 255).astype(np.uint8)
+        mark("image_out", t0)
+        self._print_timings()
         if output_figure is not None:
             save_image(output_figure, img)
             return None
         return img
+
+    def _print_timings(self) -> None:
+        """The JAX renderer's per-render line at "timing" and "debug"."""
+        if self.verbosity in ("timing", "debug"):
+            t = self.last_timings
+            phases = "  ".join(f"{k}={v:.3f}s" for k, v in t.items())
+            print(f"[TachyonRender] {phases}  total={sum(t.values()):.3f}s")
 
     # ------------------------------------------------------------------
     def render_system(

@@ -248,6 +248,63 @@ def test_cuda_backend_refuses_without_card(monkeypatch):
     assert tbuild_scene(*one, device="cpu").sph_center.device.type == "cpu"
 
 
+def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
+    """ROADMAP C8: ``__init__``, ``render`` and ``render_system`` take the
+    JAX renderer's parameters, in its order and with its defaults, apart
+    from the backend's name ("tpu" there, "cuda" here); "gpu" means "cuda"
+    and "auto" resolves to "cuda" when a card is visible, else to "cpu";
+    ``verbosity`` is checked as the JAX renderer checks it, and every
+    ``render`` fills ``last_timings`` with the JAX renderer's phase names."""
+    import inspect
+
+    for name in ("__init__", "render", "render_system"):
+        jp = inspect.signature(getattr(mdapy_tpu.TachyonRender, name)).parameters
+        tp = inspect.signature(getattr(mdapy_tpu_torch.TachyonRender, name)).parameters
+        assert list(tp) == list(jp), name
+        for k in jp:
+            if (name, k) != ("__init__", "backend"):
+                assert tp[k].default == jp[k].default, (name, k)
+    init = inspect.signature(mdapy_tpu_torch.TachyonRender.__init__).parameters
+    assert init["backend"].default == "cuda"
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mdapy_tpu_torch.TachyonRender(backend="auto").backend == "cpu"
+    assert mdapy_tpu_torch.TachyonRender(backend=" CPU ").backend == "cpu"
+    for asked in ("gpu", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mdapy_tpu_torch.TachyonRender(backend=asked)
+    with pytest.raises(ValueError, match="backend"):
+        mdapy_tpu_torch.TachyonRender(backend="tpu")
+    with pytest.raises(ValueError, match="verbosity"):
+        mdapy_tpu_torch.TachyonRender(backend="cpu", verbosity="loud")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for asked in ("gpu", "auto", "cuda"):
+        ren = mdapy_tpu_torch.TachyonRender(backend=asked)
+        assert ren.backend == "cuda" and ren._device.type == "cuda"
+    monkeypatch.undo()
+
+    pos, colors, radii = _fcc_scene(2)
+    ren = mdapy_tpu_torch.TachyonRender(backend="auto", ao=False,
+                                        verbosity="timing")
+    assert ren.backend == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert ren.last_timings == {}
+    ren.render(pos, colors, radii, width=32, height=32)
+    phases = ("prepare", "scene_build", "accel_build", "trace", "image_out")
+    assert tuple(ren.last_timings) == phases
+    assert all(v >= 0.0 for v in ren.last_timings.values())
+    out = capsys.readouterr().out
+    assert f"backend 'auto' -> '{ren.backend}'" in out
+    assert "[TachyonRender] prepare=" in out and "total=" in out
+    # a warm frame keeps the phases; the device frame has no image_out
+    ren.render(pos, colors, radii, width=32, height=32, device_output=True)
+    assert tuple(ren.last_timings) == phases[:-1]
+    assert "trace=" in capsys.readouterr().out
+    quiet = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    quiet.render(pos, colors, radii, width=32, height=32)
+    assert tuple(quiet.last_timings) == phases
+    assert capsys.readouterr().out == ""
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, numpy as np\n"
