@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. Build the hand kernels ``mdapy_tpu_torch/csrc/mega_render.cu`` and
    ``tile_kernels.cu`` from the sources, one nvcc each, started together,
-   and print ptxas' register and shared-memory lines.
+   and print ptxas' register and shared-memory lines, and each measured
+   megakernel variant's and tile kernel's registers, spill bytes and blocks
+   an SM.
 2. Kernel against its plain torch version, on the same CUDA tensors, on a
    2,048-atom FCC scene at 320x240: (a) perspective, S = 3, shadows;
    (b) orthographic ("top"), S = 1, shadows; (c) perspective, S = 1, no
@@ -26,9 +28,9 @@ Phases (any failure exits non-zero before the last line is printed):
    ``render_image_pallas(light_records=...)``: (i) perspective, S = 3, lit
    from beside the camera; (j) orthographic, S = 1, the preset's light: the
    chunked closest hit and the shadow filter against their plain versions
-   on the arguments the path gave them (max |diff| of t and of the record
-   at most 1e-4, at most 1e-5 of the rays' filters differing; 0 expected),
-   and the frame against the same frame with the plain versions in the
+   on the arguments the path gave them (max |diff| 0 of t, of the record
+   and of the filter, here and in every phase that holds them), and the
+   frame against the same frame with the plain versions in the
    kernels' place.  (k) the 54-atom bond scene pushed past the megakernel's
    limit through ``TachyonRender`` (``render_image_pallas``, light cells of
    three kinds), against the plain route and against ``backend="cpu"``;
@@ -50,6 +52,13 @@ Phases (any failure exits non-zero before the last line is printed):
    mid-step, translucent (n_peel 4 with AO 4, peel1) and opaque (with and
    without AO 4); and the 2,048-atom scene under the preset's light (warps
    with one lit lane) and lit from beside the camera (warps with all 32).
+   (t) The tile kernels' edge cases, kernel against plain at max |diff| 0:
+   ``tests/_tile_cases.py``'s closest-hit argument sets (R of 1, 31, 1,664,
+   3,328 and 4,097; one chunk and many; rays from one origin and from
+   their own; equal t across chunks and lanes; padded slots, rays with
+   tcap = -1e18, a tile without a live chunk) and shadow-filter sets
+   (cells of 0-200 records, occluders at records 0, 32 and last, key stops
+   in mid-step, warps with no, one and 32 lit lanes, M = 0).
    The variants' registers, spills and blocks an SM print in phase 1.
 3. The headline frame at full size, one light: the 1,000,188-atom FCC block
    (a = 3.615, r = 1.28), the "perspective" preset camera, 1920x1080, AA 12
@@ -143,8 +152,8 @@ TOL_PIXELS = 4        # pixels allowed above TOL_PIXEL_DIFF in any channel
 TOL_PIXEL_DIFF = 1e-3
 TOL_MEAN = 1e-4
 WARM_FRAMES = 5
-TOL_HIT = 1e-4        # max |diff| of the closest hit's t and record (0 expected)
-TOL_FILT = 1e-5       # share of rays whose shadow filter may differ (0 expected)
+TOL_HIT = 0.0         # max |diff| of the closest hit's t and record
+TOL_FILT = 0.0        # share of rays whose shadow filter may differ
 TOL_LEVELS = 1e-3     # share of uint8 pixels off by > 1 level, card against CPU
 TOL_PEEL = 1e-4       # max |diff| of a peel case, kernel against plain (0 expected)
 
@@ -815,6 +824,29 @@ def walk_cases(dev, card: str) -> list:
     return errs
 
 
+def tile_cases(tile_kernels, dev, card: str) -> dict:
+    """Phase 2 (t): the tile kernels' edge cases, kernel against plain at
+    max |diff| 0.  The cases are ``tests/_tile_cases.py``'s, which the CPU
+    test ``tests/test_torch_tile_cases.py`` holds against the JAX package
+    and a numpy brute force."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _tile_cases as tc
+
+    errs = {"closest_hit_spheres_tiles": [], "shadow_filter_tiles": []}
+    for name, kw in tc.HIT_CASES.items():
+        args = tuple(torch.as_tensor(a, device=dev) for a in tc.hit_case(**kw))
+        errs["closest_hit_spheres_tiles"].append(compare_hit(
+            tile_kernels, args, dict(eps=float(tc.EPS)), f"[2t] closest hit {name}"))
+    for name, kw in tc.SHADOW_CASES.items():
+        args = tuple(torch.as_tensor(a, device=dev) for a in tc.shadow_case(**kw))
+        errs["shadow_filter_tiles"].append(compare_filt(
+            tile_kernels, args, dict(grid_n=tc.GRID, eps=float(tc.EPS)),
+            f"[2t] shadow filter {name}"))
+    print(f"  [2t] on {card}: {len(tc.HIT_CASES)} closest-hit and "
+          f"{len(tc.SHADOW_CASES)} shadow-filter cases at max |diff| 0")
+    return errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -859,6 +891,9 @@ def main() -> None:
     for name, flags in MAIN_VARIANTS.items():
         variants[name] = megakernel.kernel_attrs(**flags)
         print(f"  megakernel variant {name} {flags}: {variants[name]}")
+    tile_attrs = tile_kernels.kernel_attrs()
+    for name, attrs in tile_attrs.items():
+        print(f"  tile kernel {name} (tiles of 3,328 rays): {attrs}")
 
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
@@ -1037,6 +1072,9 @@ def main() -> None:
     peel_errs = peel_cases(dev, card)
     # (w): long and short cell walks
     peel_errs += walk_cases(dev, card)
+    # (t): the tile kernels' edge cases
+    for name, errs_t in tile_cases(tile_kernels, dev, card).items():
+        tile_errs[name] += errs_t
 
     # ---- 3. main path, full size ------------------------------------------
     width, height, S = 1920, 1080, 13
@@ -1840,6 +1878,7 @@ def main() -> None:
         "library_ms": None,
         "frame_ms": b2_frame_ms,
         "heavy_bond_frame_ms": b2_heavy_ms,
+        **tile_attrs["closest_hit"],
     }, {
         "name": "shadow_filter_tiles",
         "route": "cuda",
@@ -1858,6 +1897,8 @@ def main() -> None:
         "relit_plain_ms": t_b3r_plain * 1e3,
         "relit_bound_ms": b3r_bound_ms,
         "relit_bound_by": b3r_by,
+        "filter_kernel": tile_attrs["shadow_filter"],
+        "walk_kernel": tile_attrs["shadow_walk"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

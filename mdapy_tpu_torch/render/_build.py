@@ -47,7 +47,7 @@ _HIT_ARGTYPES = (
     + [_c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_void_p]   # nb, R, nchunks, eps, stream
 )
 _SHADOW_ARGTYPES = (
-    [_c.c_void_p] * 7                                  # uvt, cellxy, lit, lrec, offs, cnt, filt
+    [_c.c_void_p] * 8                                  # uvt, cellxy, lit, lrec, offs, cnt, filt, scratch
     + [_c.c_longlong, _c.c_int, _c.c_float, _c.c_void_p]        # n, grid_n, eps, stream
 )
 # headers every source includes; they enter each library's digest
@@ -59,6 +59,7 @@ _LIBRARIES = {
     "tile_kernels": ("tile_kernels.cu", {
         "closest_hit_spheres_launch": _HIT_ARGTYPES,
         "shadow_filter_launch": _SHADOW_ARGTYPES,
+        "tile_kernels_attrs": [_c.c_int, _c.c_int, _c.c_void_p],   # which, R, out
     }),
 }
 

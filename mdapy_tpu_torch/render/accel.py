@@ -45,6 +45,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import ieee
+
 __all__ = [
     "ScreenBins", "LightBins", "LightKind", "build_screen_bins",
     "build_light_bins",
@@ -146,7 +148,7 @@ def _screen_px_bounds(centers, radii, origin, right, up2, view, left, bottom,
         def extent(lat, dep):
             unbounded = dep <= r
             d2 = lat * lat + dep * dep
-            root = torch.sqrt(torch.clamp(d2 - r * r, min=1e-20))
+            root = ieee.sqrt(torch.clamp(d2 - r * r, min=1e-20))
             denom = dep * dep - r * r
             safe = torch.where(unbounded, torch.ones_like(denom), denom)
             u1 = (lat * dep - r * root) / safe
@@ -243,7 +245,7 @@ def _cyl_screen_seg(base, axis, radii, g, perspective: bool):
         # finite-distance silhouette half-width times sec^2 of the frame
         # corner's angle
         sec2 = 1.0 + left * left + bottom * bottom
-        safe = torch.sqrt(torch.clamp(zmin * zmin - radii * radii, min=1e-12))
+        safe = ieee.sqrt(torch.clamp(zmin * zmin - radii * radii, min=1e-12))
         rpad = radii * sec2 / (safe * ps)
         active = ((z0 > 1e-6) & (z1 > 1e-6) & (radii > 0)
                   & (zmin > radii * 1.05))

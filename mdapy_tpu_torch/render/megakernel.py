@@ -65,6 +65,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import ieee
+
 __all__ = [
     "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
     "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
@@ -357,7 +359,7 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
         ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r
         disc = b * b - ccb
         ok = (disc >= 0.0) & (r > 0.0)
-        sq = torch.sqrt(torch.where(ok, disc, 0.0))
+        sq = ieee.sqrt(torch.where(ok, disc, 0.0))
         t1 = -b - sq
         t2 = sq - b
         big = torch.full_like(t1, BIG)
@@ -429,7 +431,7 @@ def _closest_hit_other(other, tiles, o, d, bt, eps: float, perspective: bool):
         disc = bq * bq - a2 * cq
         live_c = (typ == 1.0) & (rad > 0.0) & (disc >= 0.0) & (a2 > 1e-12)
         inv_a2 = 1.0 / torch.where(a2 > 1e-12, a2, 1.0)
-        sq = torch.sqrt(torch.where(live_c, disc, 0.0))
+        sq = ieee.sqrt(torch.where(live_c, disc, 0.0))
         t1 = (-bq - sq) * inv_a2
         t2 = (-bq + sq) * inv_a2
         s1 = oca + t1 * dda
@@ -476,7 +478,7 @@ def _cylring_occludes(oc, axis, rr, typ, al, dda, dp, a2, inv_a2, light,
     cq = opx * opx + opy * opy + opz * opz - rr * rr
     disc = bq * bq - a2 * cq
     live_c = (typ == 1.0) & (disc >= 0.0) & (a2 > 1e-12)
-    sq = torch.sqrt(torch.where(live_c, disc, 0.0))
+    sq = ieee.sqrt(torch.where(live_c, disc, 0.0))
     t1 = (-bq - sq) * inv_a2
     t2 = (-bq + sq) * inv_a2
     s1_ = oca + t1 * dda
@@ -541,7 +543,7 @@ def _occluders_blocked(occ, lp, h, rect, test, groups, eps: float,
         vcx = 0.5 * (vmin + vmax)
         du = umax - umin
         dv = vmax - vmin
-        halfdiag = 0.5 * torch.sqrt(du * du + dv * dv)
+        halfdiag = 0.5 * ieee.sqrt(du * du + dv * dv)
         wx = ucx[:, None] - gu0
         wy = vcx[:, None] - gv0
         ts = torch.clamp((wx * bx + wy * by) / blen, 0.0, 1.0)

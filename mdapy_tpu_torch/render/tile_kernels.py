@@ -6,9 +6,9 @@ the Pallas kernel ``_shadow_kernel`` :220).  ``gather_chunk_data`` of that
 module is in ``gather.py``.
 
 Each function dispatches on the tensors' device, as ``megakernel.mega_render``
-does: CUDA tensors go to the hand kernel (``csrc/tile_kernels.cu``), CPU
-tensors to the plain torch version beside it, and nothing else decides; a
-build or launch that fails raises.
+does: CUDA tensors go to the hand kernels (``csrc/tile_kernels.cu``), CPU
+tensors to the plain torch version beside them, and nothing else decides; a
+build or launch that fails raises.  Each wrapper call counts one launch.
 
 ``closest_hit_spheres_tiles``: per tile, its rays walk the tile's
 depth-sorted 128-wide candidate chunks front to back and stop at the first
@@ -17,16 +17,25 @@ The rays of a tile share that exit in slices of at most ``SLICE`` rays
 (equal slices, as the TPU wrapper cuts its ray blocks); the exit is
 conservative, so the slicing moves no result, but the kernel and the plain
 version use the same one and so walk the same chunks.  Among equal t the
-earlier chunk wins, then the lower lane.
+earlier chunk wins, then the lower lane.  On the card the kernel is bound by
+issuing its sphere tests and by the rays' loads and stores (64 bytes a ray);
+it tests the slices whose rays share one origin (the perspective camera)
+from staged ray-independent terms, fills its warps with four rays a thread,
+writes the misses of a slice that reaches no chunk without reading its
+rays, and loads chunk c + 1 while chunk c is tested (the source's note).
 
 ``shadow_filter_tiles``: a ray with ``lit = 0`` gets 1.0; a lit ray is
 blocked (0.0) when a record of its light-grid cell has r > 0, s2 = r^2 -
 (du^2 + dv^2) > 0 and ck + sqrt(s2) > tau + eps.  The records are the port's
 compact CSR rows (``accel.build_light_records``), each cell's by descending
 far key, so a walk stops at its first occluder or once key <= tau + eps.  The
-test is the megakernel's primary-light sweep (``megakernel._shadow_blocked``,
-``walk_cell`` in ``csrc/render_common.cuh``): the square root is avoided by
-comparing s2 with (tau + eps - ck)^2.
+test is the megakernel's primary-light sweep (``megakernel._shadow_blocked``):
+the square root is avoided by comparing s2 with (tau + eps - ck)^2.  On the
+card the walks bound it (a few to 2,500 records a lit ray); the kernel
+checks each lit ray's cell header first, walks the rays of a block with 32
+walks or more in place (a warp's rays share a cell, one broadcast read a
+record) and queues the rest of the walks in a scratch buffer for persistent
+blocks, where a thread walks the first 32 records and a warp the rest.
 """
 
 from __future__ import annotations
@@ -41,8 +50,8 @@ from .megakernel import CH, _check
 __all__ = [
     "closest_hit_spheres_tiles", "closest_hit_spheres_tiles_plain",
     "closest_hit_spheres_tiles_cuda", "shadow_filter_tiles",
-    "shadow_filter_tiles_plain", "shadow_filter_tiles_cuda", "launches",
-    "reset_launches", "SLICE",
+    "shadow_filter_tiles_plain", "shadow_filter_tiles_cuda", "kernel_attrs",
+    "launches", "reset_launches", "SLICE",
 ]
 
 SLICE = 2048     # most rays of a tile that share one early exit (one block)
@@ -154,6 +163,25 @@ def closest_hit_spheres_tiles(o, *args, **kwargs):
     raise ValueError(f"no closest-hit path for device {o.device}")
 
 
+def kernel_attrs(R: int = 3328) -> dict:
+    """Each hand kernel's registers a thread, local (spill) bytes a
+    thread, static shared bytes and the blocks an SM holds at once (the CUDA
+    occupancy calculator), the closest hit's for tiles of R rays: {name:
+    dict}.  Needs the card."""
+    from ._build import load_tile_kernels
+
+    lib = load_tile_kernels()
+    attrs = {}
+    for which, name in enumerate(("closest_hit", "shadow_filter", "shadow_walk")):
+        out = (ctypes.c_int * 4)()
+        rc = lib.tile_kernels_attrs(which, R, ctypes.c_void_p(ctypes.addressof(out)))
+        if rc != 0:
+            raise RuntimeError(f"tile_kernels_attrs failed: CUDA error {rc}")
+        attrs[name] = dict(registers=out[0], local_bytes=out[1],
+                           static_smem=out[2], blocks_per_sm=out[3])
+    return attrs
+
+
 def _check_shadow_args(uvt, cellxy, lit, lrec, offs, cnt, grid_n: int):
     dev = uvt.device
     f32, i32 = torch.float32, torch.int32
@@ -210,13 +238,15 @@ def shadow_filter_tiles_cuda(uvt, cellxy, lit, lrec, offs, cnt, grid_n: int,
         return filt
     if lrec.shape[0] == 0:   # every cell is empty; a valid pointer all the same
         lrec = torch.zeros((1, 8), dtype=torch.float32, device=dev)
+    # the walk queue: its count, then the rays that need a walk
+    scratch = torch.empty(nb * R + 1, dtype=torch.int32, device=dev)
     lib = load_tile_kernels()
     ptr = ctypes.c_void_p
     with torch.cuda.device(dev):
         rc = lib.shadow_filter_launch(
             ptr(uvt.data_ptr()), ptr(cellxy.data_ptr()), ptr(lit.data_ptr()),
             ptr(lrec.data_ptr()), ptr(offs.data_ptr()), ptr(cnt.data_ptr()),
-            ptr(filt.data_ptr()), nb * R, grid_n, eps,
+            ptr(filt.data_ptr()), ptr(scratch.data_ptr()), nb * R, grid_n, eps,
             ptr(torch.cuda.current_stream(dev).cuda_stream),
         )
     if rc != 0:

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from . import megakernel as _mk
-from . import rng, tile_kernels
+from . import ieee, rng, tile_kernels
 from .accel import LightBins, ScreenBins, gather_other_records, other_table
 from .gather import gather_chunk_data
 from .megakernel import BIG, BIG_DEPTH, MINCONTRIB, OtherRecords
@@ -216,7 +216,7 @@ def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float):
             cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
             disc = b * b - cc
             ok = (disc >= 0.0) & (r > 0.0)
-            sq = torch.sqrt(torch.where(ok, disc, 0.0))
+            sq = ieee.sqrt(torch.where(ok, disc, 0.0))
             return ok & ((-b - sq > eps) | (sq - b > eps))
 
         _walk_cells(lb.sph, cell, tau, blocked, t_sph)

@@ -13,8 +13,15 @@ config 3's translucent variant T2.  For each it prints the warm ms a frame (host
 over ``WARM_FRAMES`` ``device_output=True`` frames after one untimed frame)
 and the kernel ms of one frame: the megakernel's full frame (CUDA events,
 5 launches), or for the two tiled-tracer frames the sum of the tile
-kernels' launches in one frame.  One JSON line ``AB {...}`` labelled with
-the second argument, after the megakernel's ptxas register lines.
+kernels' launches in one frame.  Three rows time the tile kernels alone
+on one band of the tiled headline frame (tile rows 17-33, 2,040 tiles x
+3,328 rays), by CUDA events over 10 launches after one untimed: the
+chunked closest hit (``b2_band``), the shadow filter under the preset's
+light (``b3_band``, under 1 % of the rays lit) and lit from beside the
+camera (``b3_relit``), each on the arguments the frame gives it, as
+``chip_smoke.py`` phase 8 times them.  One JSON line ``AB {...}``
+labelled with the second argument, after the megakernel's ptxas register
+lines.
 
 Compare two commits by unpacking each into a directory (``git archive``)
 and running them in turns on one card, e.g. parent, change, change, parent:
@@ -55,7 +62,7 @@ from mdapy_tpu_torch import TachyonRender, preset_camera  # noqa: E402
 from mdapy_tpu_torch.render import megakernel, tile_kernels, tracer_tiled  # noqa: E402
 from mdapy_tpu_torch.render import render as trender  # noqa: E402
 from mdapy_tpu_torch.render._build import load_all  # noqa: E402
-from mdapy_tpu_torch.render.accel import build_light_bins  # noqa: E402
+from mdapy_tpu_torch.render.accel import build_light_bins, build_light_records  # noqa: E402
 from mdapy_tpu_torch.render.geometry import bond_edges, box_edges  # noqa: E402
 
 libs = load_all()
@@ -134,6 +141,48 @@ def tiled(name, fn, kernels):
     print(f"{name} {res[name]}", flush=True)
 
 
+def bands(scene, fb, cd, frame, cfg, lrec3):
+    """The tile kernels alone on band 1 of the tiled headline frame: the
+    closest hit, the shadow filter, and the shadow filter lit from beside
+    the camera, each on the arguments the frame gives it.  The relit band
+    is built here as ``chip_smoke.py`` phase 8 builds it, with what a
+    parent checkout's ``chip_smoke.py`` also has."""
+    names = ("b2_band", "b3_band", "b3_relit")
+    if opt.bounds or opt.split or (wanted is not None and not wanted & set(names)):
+        return
+    recs = {k: cs.Recorder(getattr(tile_kernels, k))
+            for k in ("closest_hit_spheres_tiles", "shadow_filter_tiles")}
+    lb = build_light_bins(scene, frame["light_dir"], grid=32)
+    with cs.swapped(tile_kernels, **recs):
+        tracer_tiled.render_image_pallas_banded(
+            scene, fb, cd, lb, frame, cfg, W, H, 0, light_records=lrec3)
+    (hargs, hkw), (sargs, skw) = (r.calls[1] for r in recs.values())
+    right = np.asarray(frame["iplaneright"], np.float64)
+    L = -np.asarray(frame["view"]) + 0.8 * right / np.linalg.norm(right)
+    frame_r = dict(frame, light_dir=L / np.linalg.norm(L))
+    lb_r = build_light_bins(scene, frame_r["light_dir"], grid=32)
+    rows = max(1, tracer_tiled.BAND_TILES // fb.tiles_x)
+    ty0, ty1 = rows, min(fb.tiles_y, 2 * rows)
+    b0, b1 = ty0 * fb.tiles_x, ty1 * fb.tiles_x
+    rec_r = cs.Recorder(tile_kernels.shadow_filter_tiles)
+    with cs.swapped(tile_kernels, shadow_filter_tiles=rec_r):
+        tracer_tiled.render_image_pallas(
+            scene, tracer_tiled.band_bins(fb, ty0, ty1), cd[b0:b1], lb_r,
+            *(frame_r[k] for k in ("origin", "lowleft", "iplaneright",
+                                   "iplaneup", "view", "light_dir")),
+            cfg, W, (ty1 - ty0) * fb.tile_px, True, 0, fb.tile_px, fb.tiles_x,
+            ty1 - ty0, ty_offset=ty0, do_flip=False,
+            light_records=build_light_records(lb_r, scene))
+    (rargs, rkw), = rec_r.calls
+    for name, fn, args, kw in (
+            ("b2_band", tile_kernels.closest_hit_spheres_tiles_cuda, hargs, hkw),
+            ("b3_band", tile_kernels.shadow_filter_tiles_cuda, sargs, skw),
+            ("b3_relit", tile_kernels.shadow_filter_tiles_cuda, rargs, rkw)):
+        if wanted is None or name in wanted:
+            res[name] = cs.event_ms(lambda: fn(*args, **kw), 10)
+            print(f"{name} {res[name]}", flush=True)
+
+
 # the headline scene: opaque, translucent (T1), through the tiled tracer
 pos, colors, radii = cs.fcc_block(63)
 cam = preset_camera("perspective", pos, max_radius=1.28)
@@ -156,6 +205,7 @@ if not (opt.bounds or opt.split):
     tiled("headline_tiled", lambda: tracer_tiled.render_image_pallas_banded(
         scene, fb, cd, lb, frame, ren._cfg, W, H, 0, light_records=lrec3),
         ("closest_hit_spheres_tiles", "shadow_filter_tiles"))
+    bands(scene, fb, cd, frame, ren._cfg, lrec3)
     del frame, fb, cd, lights, scene, lb, lrec3
 torch.cuda.empty_cache()
 centre = 0.5 * (pos.min(0) + pos.max(0))
