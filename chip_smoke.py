@@ -127,7 +127,34 @@ T3. BASELINE config 2 translucent: phase 5's BCC Fe with its atoms at
    ``render``: the cylinder/ring kernel with peeling at full width; warm
    frame beside phase 5's, the kernel split, the band.
 
-Phase 8 follows phase 3 on its scene, then T1, 5, T3, 7, 4, 6 and T2.  The
+B1f. The headline frame in bands of tile rows (``render_image_mega_banded``):
+   the record budget ``RECORD_BUDGET_BYTES`` lowered to 17 tile rows'
+   records, so its 68 tile rows take 4 bands.  At S = 1 the banded frame
+   against the one-shot frame, from ``render_image_mega_banded`` (float) and through
+   ``TachyonRender`` (uint8): a band moves its image-plane corner in
+   float32, as the JAX package's banded render does, so at most 0.01 % of the pixels may
+   differ by more than 1e-3 (a tangency flipped).  The plain version
+   renders the tiles that hold those pixels again, from the one-shot
+   inputs and from the band's: the kernel must equal it on both, and the
+   pixels it flips are printed beside the kernel's.  At S = 13, through
+   ``TachyonRender``: 4 launches a frame, the first and 5 warm frames and
+   the peak beside phase 3's one-shot frame.
+A6. The exact tracer (``render/tracer.py``, torch ops, float32 on the
+   card) on phase 5's config 2 with ``TachyonRender``'s defaults (AO 12,
+   AA 12, shadows): ``render_system`` end to end at 192x108 (route
+   "exact", ``last_timings``); then rows 524-555 of the 1920x1080 frame
+   timed on the card with the ray-primitive tests per second, the full
+   frame reckoned from the band, the bound by fp32 operations and the
+   peak; and row 539 rendered again on the CPU in float32: at most 0.1 %
+   of its pixels may differ by more than 2/255.
+A6g. BASELINE config 4: config 2's 432 atoms through ``scene_from_arrays``
+   at 480x270, AA and AO off, shadows on; one forward and backward pass of
+   a squared-error image loss against a seeded target on the card: the
+   loss and every gradient finite and not all zero, and each gradient's
+   cosine against the CPU's float64 one at least 0.99; ms and peak.
+
+Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
+6 and T2.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -156,6 +183,10 @@ TOL_HIT = 0.0         # max |diff| of the closest hit's t and record
 TOL_FILT = 0.0        # share of rays whose shadow filter may differ
 TOL_LEVELS = 1e-3     # share of uint8 pixels off by > 1 level, card against CPU
 TOL_PEEL = 1e-4       # max |diff| of a peel case, kernel against plain (0 expected)
+# share of pixels over TOL_PIXEL_DIFF, the banded frame against the one-shot
+# frame at S = 1: a band moves its image-plane corner in float32, which may
+# flip a silhouette or a shadow at a tangency
+TOL_BANDED = 1e-4
 
 
 # the megakernel variants of the measured frames (kernel_attrs's flags; a
@@ -647,6 +678,302 @@ def band_check(megakernel, args, kw, frame_bins, what, other=None, lights=None):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err)
 
 
+# fp32 operations per ray x primitive test of the exact tracer's brute
+# passes, counted from its formulas (``render/tracer.py:_sph``, ``_cyl``,
+# ``_ring``), rounded
+OPS_EXACT = {"sphere": 24, "cylinder": 60, "ring": 26}
+A6_ROWS = (524, 556)       # the timed band of config 2's 1080 rows
+A6_CPU_ROWS = (539, 540)   # its row rendered again on the CPU
+A6G_SIZE = (480, 270)      # config 4's frame
+A6G_COS_MIN = 0.99         # least cosine of a float32 gradient against float64
+B1F_BAND_ROWS = 17         # tile rows a band of the [B1f] headline frame
+B1F_WITNESS_TILES = 32     # tiles of [B1f]'s flipped pixels the plain version renders
+
+
+def banded_phase(pos, colors, radii, cam, card: str, one_warm_ms: float,
+                 one_peak: int) -> dict:
+    """[B1f] The headline frame in bands of tile rows: the record budget
+    lowered to 17 tile rows' records, so 68 rows take 4 bands.  S = 1: the
+    banded frame against the one-shot frame, in float (the band loop alone)
+    and through ``TachyonRender``; S = 13: the warm frame, launches and
+    peak beside the one-shot frame's."""
+    from mdapy_tpu_torch import TachyonRender
+    from mdapy_tpu_torch.render import megakernel
+    from mdapy_tpu_torch.render import render as trender
+
+    width, height = 1920, 1080
+    kw = dict(camera=cam, width=width, height=height, device_output=True)
+    one = TachyonRender(backend="cuda", ao=False, antialiasing=False)
+    one_img = one.render(pos, colors, radii, **kw)
+    frame, bins, cd, lights, params = one._accel
+    nb, nchunks, ch = bins.sph_chunks.shape
+    budget = trender.RECORD_BUDGET_BYTES
+    trender.RECORD_BUDGET_BYTES = (B1F_BAND_ROWS * bins.tiles_x * nchunks * 8
+                                   * ch * 4)
+    try:
+        args = dict(S=1, width=width, height=height, grid_n=32,
+                    eps=one._cfg.eps, perspective=True, shadows=True)
+        one_f = megakernel.render_image_mega(
+            cd, bins.sph_zmin, lights, params, 0, tiles_x=bins.tiles_x,
+            tiles_y=bins.tiles_y, **args)
+        band_f = megakernel.render_image_mega_banded(
+            one._scene[0], bins, lights, params, 0,
+            max_band_bytes=trender.RECORD_BUDGET_BYTES, **args)
+        d = (band_f - one_f).abs().amax(dim=-1)
+        s1_max = float(d.max())
+        s1_pixels = int((d > 0).sum())
+        s1_over = int((d > TOL_PIXEL_DIFF).sum())
+        allowed = math.floor(TOL_BANDED * d.numel())
+        print(f"[B1f] {card}: the headline frame, {bins.tiles_y} tile rows in "
+              f"bands of 17 (record budget {trender.RECORD_BUDGET_BYTES} "
+              f"bytes): S=1 banded against one-shot max |diff| {s1_max:.3e}, "
+              f"{s1_pixels} pixels differ, {s1_over} by more than "
+              f"{TOL_PIXEL_DIFF} (allowed {allowed}; each band moves its "
+              f"image-plane corner in float32, as the JAX banded render does)")
+        if not bool(torch.isfinite(band_f).all()) or s1_over > allowed:
+            fail("[B1f] the banded frame disagrees with the one-shot frame")
+        witness = flip_witness(megakernel, one._scene[0], bins, cd, lights,
+                               params, d, one_f, band_f, args)
+        del one_f, band_f, cd, lights, bins, frame
+        ren1 = TachyonRender(backend="cuda", ao=False, antialiasing=False)
+        img1 = ren1.render(pos, colors, radii, **kw)
+        if ren1._route_name != "mega" or ren1._accel[2] is not None:
+            fail("[B1f] the front end did not render in bands")
+        s1_levels = compare_levels(img1, one_img, "[B1f] S=1 through "
+                                   "TachyonRender, banded against one-shot",
+                                   TOL_LEVELS)
+        del one, one_img, ren1, img1
+        torch.cuda.empty_cache()
+        ren = TachyonRender(backend="cuda", ao=False)
+
+        def frame_once():
+            return ren.render(pos, colors, radii, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        megakernel.reset_launches()
+        img, t_first = sync_time(frame_once)
+        per_frame = megakernel.launches
+        img, t_warm = sync_time(
+            lambda: [frame_once() for _ in range(WARM_FRAMES)][-1])
+        launches = megakernel.launches
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        trender.RECORD_BUDGET_BYTES = budget
+    t_warm /= WARM_FRAMES
+    print(f"  S=13 banded: first frame {t_first * 1e3:.1f} ms, warm "
+          f"{t_warm * 1e3:.3f} ms/frame over {WARM_FRAMES} frames against the "
+          f"one-shot {one_warm_ms:.3f} ms (phase 3); peak allocated {peak} "
+          f"bytes against {one_peak}; kernel launches {launches} "
+          f"({per_frame} a frame)")
+    if per_frame != 4 or launches != 4 * (1 + WARM_FRAMES):
+        fail(f"[B1f] {per_frame} launches a frame, {launches} in all")
+    if tuple(img.shape) != (height, width, 3) or not float(img.float().std()) > 1:
+        fail("[B1f] the banded frame is wrong or flat")
+    del ren, img
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_frame=per_frame, warm_ms=t_warm * 1e3,
+                first_ms=t_first * 1e3, peak=peak, s1_max_abs=s1_max,
+                s1_pixels=s1_pixels, s1_over=s1_over, s1_levels=s1_levels,
+                **witness)
+
+
+def flip_witness(megakernel, scene, bins, cd, lights, params, d, one_f,
+                 band_f, args) -> dict:
+    """[B1f] The pixels where the S = 1 banded frame differs from the
+    one-shot frame by more than TOL_PIXEL_DIFF, rendered again by the plain
+    version: on the first B1F_WITNESS_TILES tiles that hold them, the one-shot
+    inputs and the band's own (its records, its moved image-plane corner,
+    its seed).  The kernel's pixels must equal the plain version's on both
+    (compare()), and the plain version then flips the pixels it flips: the
+    flips come from the band's float32 corner, not from the kernel."""
+    from mdapy_tpu_torch.render.gather import gather_chunk_data, pack_sphere_table
+
+    tp, tiles_x = megakernel.TILE_PX, bins.tiles_x
+    height = args["height"]
+    flips = torch.nonzero(d > TOL_PIXEL_DIFF)
+    u = height - 1 - flips[:, 0]                  # row from the frame's bottom
+    tile = (u // tp) * tiles_x + flips[:, 1] // tp
+    tiles = sorted(set(tile.tolist()))[:B1F_WITNESS_TILES]
+    if not tiles:
+        print("  flip witness: no pixel over the tolerance")
+        return dict(witness_tiles=0, witness_kernel_flips=0,
+                    witness_plain_flips=0, witness_both=0, witness_err=0.0)
+    kw = dict(S=1, tiles_x=tiles_x, grid_n=args["grid_n"], eps=args["eps"],
+              perspective=True, shadows=True)
+    table = pack_sphere_table(scene.sph_center, scene.sph_radius,
+                              scene.sph_color)
+    rows = B1F_BAND_ROWS * tiles_x
+    band_cd = {}
+    k_one, p_one, k_band, p_band = [], [], [], []
+    for t in tiles:
+        b = t // rows
+        if b not in band_cd:
+            band_cd.clear()
+            band_cd[b] = gather_chunk_data(
+                bins.sph_chunks[b * rows:(b + 1) * rows], scene.sph_center,
+                scene.sph_radius, scene.sph_color, table=table)
+        p = np.asarray(params, np.float32).copy()
+        p[3:6] = p[3:6] + np.float32(b * B1F_BAND_ROWS * tp) * p[9:12]
+        p_one.append(megakernel.mega_render_plain(
+            cd, bins.sph_zmin, lights, params, 0, tiles=(t, t + 1), **kw))
+        p_band.append(megakernel.mega_render_plain(
+            band_cd[b], bins.sph_zmin[b * rows:(b + 1) * rows], lights, p,
+            9973 * b, tiles=(t - b * rows, t - b * rows + 1), **kw))
+        # the kernel's pixels of tile t, as (1, 768) [R|G|B] rows
+        ty, tx = divmod(t, tiles_x)
+        uu = torch.arange(ty * tp, (ty + 1) * tp, device=d.device)
+        ys = (height - 1 - uu).clamp(min=0)
+        for img, out in ((one_f, k_one), (band_f, k_band)):
+            blk = img[ys][:, tx * tp:(tx + 1) * tp]             # (tp, tp, 3)
+            blk = torch.where((uu < height)[:, None, None], blk, 0.0)
+            out.append(blk.permute(2, 0, 1).reshape(1, -1))
+    band_cd.clear()
+    p_one, p_band = torch.cat(p_one), torch.cat(p_band)
+    live = torch.cat([(torch.arange(tp * tp, device=d.device) // tp
+                       + (t // tiles_x) * tp < height).repeat(3)[None]
+                      for t in tiles])
+    k_one = torch.where(live, torch.cat(k_one), 0.0)
+    k_band = torch.where(live, torch.cat(k_band), 0.0)
+    p_one, p_band = torch.where(live, p_one, 0.0), torch.where(live, p_band, 0.0)
+    err_one = compare(k_one, p_one, "[B1f] flip witness, one-shot inputs")
+    err_band = compare(k_band, p_band, "[B1f] flip witness, band inputs")
+
+    def flipped(a, b):
+        return (a - b).abs().view(-1, 3, tp * tp).amax(dim=1) > TOL_PIXEL_DIFF
+
+    fk, fp = flipped(k_band, k_one), flipped(p_band, p_one)
+    n_k, n_p, n_both = int(fk.sum()), int(fp.sum()), int((fk & fp).sum())
+    print(f"  flip witness: {len(tiles)} tiles holding {n_k} of the "
+          f"{flips.shape[0]} pixels over {TOL_PIXEL_DIFF}; the plain version "
+          f"on the same inputs flips {n_p} pixels there, {n_both} of them "
+          f"the kernel's")
+    return dict(witness_tiles=len(tiles), witness_kernel_flips=n_k,
+                witness_plain_flips=n_p, witness_both=n_both,
+                witness_err=max(err_one, err_band))
+
+
+def exact_phase(fe, rad2, cam2, card: str) -> dict:
+    """[A6] The exact tracer on BASELINE config 2 with ``TachyonRender``'s
+    defaults (AO 12, AA 12, shadows): end to end at 192x108, then a band of
+    whole rows of the 1920x1080 frame timed on the card, the full frame
+    reckoned from it, and one row of it against the CPU's float32 run."""
+    from mdapy_tpu_torch import TachyonRender
+    from mdapy_tpu_torch.render import tracer
+    from mdapy_tpu_torch.render.camera import camera_frame
+    from mdapy_tpu_torch.render.scene import build_scene
+
+    ren = TachyonRender(backend="cuda", verbosity="timing")
+    small, t_small = sync_time(lambda: ren.render_system(
+        fe, radii=rad2, camera=cam2, draw_bond=True, bond_radius=0.2,
+        width=192, height=108))
+    timings = {k: round(v * 1e3, 3) for k, v in ren.last_timings.items()}
+    print(f"[A6] {card}: config 2 through TachyonRender(backend=\"cuda\") "
+          f"defaults (ao={ren._cfg.ao_enabled}, ao_samples="
+          f"{ren._cfg.ao_samples}, aa_samples={ren._cfg.aa_samples}) at "
+          f"192x108: route {ren._route_name!r}, {t_small * 1e3:.1f} ms, "
+          f"last_timings (ms) {timings}")
+    if (ren._route_name != "exact" or small.shape != (108, 192, 4)
+            or not float(small[..., :3].std()) > 1):
+        fail("[A6] the small render_system frame is wrong, flat or off the "
+             "exact route")
+    scene, cfg = ren._exact_scene(), ren._cfg
+    fr = camera_frame(cam2, 1920, 1080)
+    cam = [fr[k] for k in ("origin", "lowleft", "iplaneright", "iplaneup",
+                           "view", "light_dir")]
+
+    def band_of(sc, rows):
+        with torch.no_grad():
+            return tracer.render_image(sc, *cam, cfg, 1920, 1080, True, 0,
+                                       rows=rows)
+
+    r0, r1 = A6_ROWS
+    tracer.count_tests()
+    torch.cuda.reset_peak_memory_stats()
+    band, t_band = sync_time(lambda: band_of(scene, A6_ROWS))
+    tests = tracer.count_tests()
+    peak = torch.cuda.max_memory_allocated()
+    n_tests = sum(tests.values())
+    bound_ms = sum(tests[k] * OPS_EXACT[k] for k in tests) / PEAK_FP32 * 1e3
+    reckoned_s = t_band * 1080 / (r1 - r0)
+    print(f"  band of rows {r0}-{r1 - 1} ({(r1 - r0) * 1920} pixels) on the "
+          f"card: {t_band * 1e3:.1f} ms, full frame reckoned from it "
+          f"{reckoned_s:.1f} s; ray-primitive tests {tests} = {n_tests:.4e}, "
+          f"{n_tests / t_band:.4e} tests/s; bound {bound_ms:.3f} ms by fp32 "
+          f"operations (share {bound_ms / (t_band * 1e3):.3%}); peak "
+          f"allocated {peak} bytes")
+    if not bool(torch.isfinite(band).all()) or not float(band.std()) > 0.02:
+        fail("[A6] the band is not finite or flat")
+    c0, c1 = A6_CPU_ROWS
+    cpu_scene = build_scene(**ren._build_args, device="cpu")
+    cpu, t_cpu = sync_time(lambda: band_of(cpu_scene, A6_CPU_ROWS))
+    d = (band[c0 - r0:c1 - r0].cpu() - cpu).abs().amax(dim=-1)
+    n_bad = int((d > 2 / 255).sum())
+    allowed = math.floor(1e-3 * d.numel())
+    print(f"  rows {c0}-{c1 - 1} on the CPU in float32 ({t_cpu:.1f} s, "
+          f"{torch.get_num_threads()} threads) against the card: max |diff| "
+          f"{float(d.max()):.3e}, pixels over 2/255: {n_bad} of {d.numel()} "
+          f"(allowed {allowed})")
+    if n_bad > allowed:
+        fail("[A6] the card's band disagrees with the CPU's")
+    del ren, scene, band, cpu, cpu_scene
+    torch.cuda.empty_cache()
+    return dict(band_ms=t_band * 1e3, rows=A6_ROWS, reckoned_s=reckoned_s,
+                tests=n_tests, tests_per_s=n_tests / t_band, bound_ms=bound_ms,
+                peak=peak, small_ms=t_small * 1e3)
+
+
+def grad_phase(fe, rad2, cam2, card: str) -> dict:
+    """[A6g] BASELINE config 4: config 2's 432 atoms through
+    ``scene_from_arrays`` at 480x270, AA and AO off, shadows on; one forward
+    and backward pass of a squared-error image loss against a seeded target
+    on the card, and the same in float64 on the CPU for the cosine."""
+    from mdapy_tpu_torch.render import render as trender
+    from mdapy_tpu_torch.render import tracer
+    from mdapy_tpu_torch.render.camera import camera_frame
+    from mdapy_tpu_torch.render.config import RenderConfig
+    from mdapy_tpu_torch.render.scene import scene_from_arrays
+
+    w, h = A6G_SIZE
+    fr = camera_frame(cam2, w, h)
+    cam = [fr[k] for k in ("origin", "lowleft", "iplaneright", "iplaneup",
+                           "view", "light_dir")]
+    cfg = RenderConfig(aa_samples=0, aa_enabled=False, ao_enabled=False,
+                       shadows_enabled=True)
+    inputs = (fe.get_positions(), trender._default_colors(fe), rad2)
+    target = np.random.default_rng(0).uniform(0.0, 1.0, (h, w, 3))
+
+    def step(device, dtype):
+        leaves = [torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device, requires_grad=True) for a in inputs]
+        img = tracer.render_image(scene_from_arrays(*leaves), *cam, cfg, w, h,
+                                  True, 0)
+        loss = ((img - torch.as_tensor(target, dtype=dtype, device=device)) ** 2).sum()
+        loss.backward()
+        return float(loss.detach()), [a.grad for a in leaves]
+
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), t_step = sync_time(lambda: step("cuda", torch.float32))
+    peak = torch.cuda.max_memory_allocated()
+    ok = math.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = any(float(g.abs().max()) > 0 for g in grads)
+    loss64, grads64 = step("cpu", torch.float64)
+    cos = [float(torch.nn.functional.cosine_similarity(
+        g.double().cpu().flatten(), g64.flatten(), dim=0)) for g, g64 in
+        zip(grads, grads64)]
+    print(f"[A6g] {card}: config 4, {len(inputs[0])} atoms, {w}x{h}, AA off, "
+          f"shadows: forward + backward {t_step * 1e3:.1f} ms, peak allocated "
+          f"{peak} bytes; loss {loss:.6g} (CPU float64 {loss64:.6g}); "
+          f"gradients finite {ok}, non-zero {nonzero}; cosine against the "
+          f"CPU float64 gradient: positions {cos[0]:.6f}, colors {cos[1]:.6f}, "
+          f"radii {cos[2]:.6f}")
+    if not ok or not nonzero:
+        fail("[A6g] the loss or a gradient is not finite, or all are zero")
+    if not min(cos) >= A6G_COS_MIN:
+        fail(f"[A6g] a float32 gradient's cosine against the float64 one is "
+             f"below {A6G_COS_MIN}")
+    return dict(ms=t_step * 1e3, peak=peak, cos=cos)
+
+
 def peel_cases(dev, card: str) -> list:
     """Phase 2 (m)-(s): transparency peeling, kernel against its plain
     version on the same CUDA tensors.  Returns the max |diff| of each."""
@@ -933,7 +1260,7 @@ def main() -> None:
     mid_b, ext_b = 0.5 * (lo_b + hi_b), hi_b - lo_b
     big_cell = Cell(3 * ext_b, origin=mid_b - 1.5 * ext_b)
     ao_exact = trender.AO_EXACT_MAX_SPHERES
-    trender.AO_EXACT_MAX_SPHERES = 0      # AO on 54 atoms (exact AO is A6)
+    trender.AO_EXACT_MAX_SPHERES = 0      # the kernel's fast AO on 54 atoms
     for case, preset, aa, ao, cell in (("f", "perspective", 2, 0, small.box),
                                        ("g", "top", 0, 4, small.box),
                                        ("h", "perspective", 0, 0, big_cell)):
@@ -1270,6 +1597,9 @@ def main() -> None:
     del ren, args, chunk_data, lights_main, frame_bins, scene, bins, lb, cd, lrec
     torch.cuda.empty_cache()
 
+    # ---- B1f. the headline frame in bands ----------------------------------
+    b1f = banded_phase(pos, colors, radii, cam, card, headline_warm_ms, peak)
+
     # ---- T1. the headline scene translucent: a precipitate in its matrix ----
     centre = 0.5 * (pos.min(0) + pos.max(0))
     edge = float((pos.max(0) - pos.min(0)).max())
@@ -1442,6 +1772,10 @@ def main() -> None:
     errs.append(b_c2["err"])
     del ren, args, chunk_data, lights, frame_bins, other, img, _
     torch.cuda.empty_cache()
+
+    # ---- A6, A6g. the exact tracer on config 2, and config 4 ----------------
+    a6 = exact_phase(fe, rad2, cam2, card)
+    a6g = grad_phase(fe, rad2, cam2, card)
 
     # ---- T3. config 2 translucent: the atoms at alpha 0.4, bonds opaque ------
     colors_t3 = colors2.copy()
@@ -1821,7 +2155,8 @@ def main() -> None:
         "source": "mdapy_tpu_torch/csrc/mega_render.cu",
         "replaces": "mdapy_tpu/render/megakernel.py:156",
         "launches": (launches + ao_launches + box_launches + c2_launches
-                     + t1_launches + t2_launches + t3_launches),
+                     + t1_launches + t2_launches + t3_launches
+                     + b1f["launches"]),
         "max_abs_err": max(errs + peel_errs),
         "ms": b_head["ms"],
         "plain_ms": b_head["plain_ms"],
@@ -1840,6 +2175,17 @@ def main() -> None:
         "config2_plain_ms": b_c2["plain_ms"],
         "config2_bound_ms": b_c2["bound_ms"],
         "config2_bound_by": b_c2["bound_by"],
+        "banded_route": "megakernel.render_image_mega_banded",
+        "banded_launches": b1f["launches"],
+        "banded_launches_per_frame": b1f["per_frame"],
+        "banded_warm_ms": b1f["warm_ms"],
+        "banded_peak_bytes": b1f["peak"],
+        "banded_s1_max_abs_diff": b1f["s1_max_abs"],
+        "banded_s1_pixels_over_tol": b1f["s1_over"],
+        "banded_s1_witness_tiles": b1f["witness_tiles"],
+        "banded_s1_witness_kernel_flips": b1f["witness_kernel_flips"],
+        "banded_s1_witness_plain_flips": b1f["witness_plain_flips"],
+        "banded_s1_witness_both": b1f["witness_both"],
         "peel_launches": t1_launches + t2_launches + t3_launches,
         "peel_launches_per_frame": max(t1_per_frame, t2_per_frame, t3_per_frame),
         "peel_max_abs_err": max(peel_errs),

@@ -1,8 +1,9 @@
 """The fused render pass: raygen, closest hit, shading, shadows, AA mean.
 
-Port of the one-shot slice of ``mdapy_tpu/render/megakernel.py`` —
-``build_mega_params`` (:81), ``_hash_jitter`` (:110), the Pallas kernel
-``_mega_kernel`` (:156) and its host wrapper ``render_image_mega`` (:1852) —
+Port of ``mdapy_tpu/render/megakernel.py`` — ``build_mega_params`` (:81),
+``_hash_jitter`` (:110), the Pallas kernel ``_mega_kernel`` (:156), its host
+wrapper ``render_image_mega`` (:1852) and its banded form
+``render_image_mega_banded`` (:2085) —
 for spheres, bond and box-edge cylinders and their ring caps, lit by the
 primary directional light and, with ambient occlusion, by the AO sky lights
 that share its traversal, opaque or translucent (ROADMAP B1a-B1e).
@@ -53,8 +54,9 @@ records from ``extra_lights`` entries, with the JAX wrapper's meaning.
 
 ``mega_render`` dispatches on the tensors' device: CUDA tensors go to the
 hand kernel (``csrc/mega_render.cu``), CPU tensors to ``mega_render_plain``,
-the plain torch version of the same computation.  The banded variant (B1f)
-is not ported yet.
+the plain torch version of the same computation.  The banded form
+(B1f) launches the same pass once per band of tile rows, for a frame whose
+candidate records pass the memory budget.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ from . import ieee
 __all__ = [
     "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
     "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
-    "plain_work", "count_work", "render_image_mega", "stack_lights",
+    "plain_work", "count_work", "render_image_mega",
+    "render_image_mega_banded", "stack_lights",
     "kernel_attrs", "launches", "reset_launches",
 ]
 
@@ -1142,3 +1145,52 @@ def render_image_mega(chunk_data, zmin, lights, params, seed, *, S: int,
     if quantized:
         img = torch.clamp(torch.round(img * 255.0), 0.0, 255.0).to(torch.uint8)
     return img
+
+
+def render_image_mega_banded(scene, bins, lights, params, seed, *, S: int,
+                             width: int, height: int, grid_n: int,
+                             eps: float, perspective: bool, shadows: bool,
+                             quantized: bool = False, other=None,
+                             n_peel: int = 1, peel1: bool = False,
+                             max_band_bytes: int = 2 << 30) -> torch.Tensor:
+    """``render_image_mega`` in bands of tile rows, for a frame whose
+    candidate records pass the memory budget
+    (``mdapy_tpu/render/megakernel.py:2085``).
+
+    The sphere table is packed once.  Band b (of ``rows_band`` tile rows,
+    the most whose records fit in ``max_band_bytes`` and that divide
+    ``tiles_y``) gathers its own records, moves the image plane's lower
+    left corner up by b * band_h * ``params[9:12]`` and seeds its AA hash
+    with ``seed + 9973 * b`` (the kernel keys the hash on the band's own
+    tile ids, which restart at 0); the bands run top band first, stack, and
+    the top pad is cropped.  ``lights`` and ``other`` (with its occluder
+    tables) are the whole frame's, as for ``render_image_mega``."""
+    from .gather import gather_chunk_data, pack_sphere_table
+
+    tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
+    nb, nchunks, ch = bins.sph_chunks.shape
+    bytes_per_row = tiles_x * nchunks * 8 * ch * 4
+    rows_band = max(1, min(tiles_y, max_band_bytes // max(bytes_per_row, 1)))
+    while tiles_y % rows_band:
+        rows_band -= 1
+    band_h = rows_band * TILE_PX
+    params = np.asarray(params, np.float32)
+    table = pack_sphere_table(scene.sph_center, scene.sph_radius,
+                              scene.sph_color)
+    imgs = []
+    for b in range(tiles_y // rows_band - 1, -1, -1):   # top band first
+        b0, b1 = b * rows_band * tiles_x, (b + 1) * rows_band * tiles_x
+        cd = gather_chunk_data(bins.sph_chunks[b0:b1], scene.sph_center,
+                               scene.sph_radius, scene.sph_color, table=table)
+        p = params.copy()
+        p[3:6] = p[3:6] + np.float32(b * band_h) * p[9:12]
+        oth = None if other is None else other._replace(
+            ooffs=other.ooffs[b0:b1], ocnt=other.ocnt[b0:b1])
+        imgs.append(render_image_mega(
+            cd, bins.sph_zmin[b0:b1], lights, p, seed + b * 9973, S=S,
+            width=width, height=band_h, tiles_x=tiles_x, tiles_y=rows_band,
+            grid_n=grid_n, eps=eps, perspective=perspective, shadows=shadows,
+            quantized=quantized, other=oth, n_peel=n_peel, peel1=peel1))
+    img = torch.cat(imgs, dim=0)
+    pad_top = tiles_y * TILE_PX - height
+    return img[pad_top:] if pad_top else img

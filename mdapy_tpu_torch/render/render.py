@@ -3,20 +3,27 @@
 Port of ``mdapy_tpu/render/render.py`` (``TachyonRender`` :75, ``render``
 :164, ``render_system`` :774, ``_default_colors`` :54): spheres, bond and
 box-edge cylinders with their ring caps, opaque or translucent, one
-directional light with shadows, AA, and the fast ambient occlusion of scenes
-above ``AO_EXACT_MAX_SPHERES`` padded spheres.  ``backend="cuda"`` runs the
-acceleration builds as torch ops on the card and the frame through the hand
-CUDA kernels; ``backend="cpu"`` runs the same builds on the CPU and the
-kernels' plain torch versions, in float32.
+directional light with shadows, AA, and ambient occlusion: exact below
+``AO_EXACT_MAX_SPHERES`` padded spheres, fast above.  ``backend="cuda"``
+runs the acceleration builds as torch ops on the card and the frame through
+the hand CUDA kernels; ``backend="cpu"`` runs the same builds on the CPU and
+the kernels' plain torch versions, in float32.
 
-A frame takes one of three routes, as in the JAX renderer (render.py:391-750):
-the one-shot megakernel (``megakernel.render_image_mega``); past its limits
-for cylinders and rings — more than ``OTHER_TILE_MAX`` candidates in a tile,
-or more than ``OTHER_SHADOW_MAX`` live ones with shadows — the tiled tracer
+A frame takes one of four routes, as the JAX renderer picks them
+(render.py:330-750): the one-shot megakernel (``megakernel.render_image_mega``,
+or ``render_image_mega_banded`` past ``RECORD_BUDGET_BYTES`` of candidate
+records); past its limits for cylinders and rings — more than
+``OTHER_TILE_MAX`` candidates in a tile, or more than ``OTHER_SHADOW_MAX``
+live ones with shadows — the tiled tracer
 ``tracer_tiled.render_image_pallas`` in bands of tile rows (chunked sphere
 closest-hit kernel, dense cylinder/ring merge, light-grid shadow pass over
-all three kinds); and for a scene with cylinders or rings but no live sphere
-``tracer_tiled.render_image_tiled``.
+all three kinds); for a scene with cylinders or rings but no live sphere, or
+with ``use_pallas`` off, ``tracer_tiled.render_image_tiled``; and the exact
+tracer ``tracer.render_image`` (every ray against every primitive, in
+torch ops): AO on at most ``AO_EXACT_MAX_SPHERES`` padded spheres, AO or
+transparency off the megakernel, and every frame with ``use_tiling`` off.
+It runs in float32 on the card and in float64 with ``backend="cpu"``, as
+the JAX renderer runs it (render.py:236).
 
 Transparency (``render.py:237-240, 642-645``): any alpha < 1 on an atom,
 a bond colour or the box colour turns it on for the frame, and the
@@ -30,12 +37,8 @@ the primary light in the same launch, so one closest-hit traversal serves
 them all.  Their structures are world-space and keyed by the scene alone,
 so a camera move reuses them.
 
-What the port does not cover raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: AO on scenes of at most
-``AO_EXACT_MAX_SPHERES`` padded spheres, and AO or transparency on a scene
-that leaves the megakernel (past its cylinder and ring limits, or without a
-live sphere), all of which take the exact tracer in the JAX renderer (A6);
-and candidate records past the memory budget (B1f).
+The JAX renderer's tuning knob ``MDAPY_TPU_AO_MODE`` (exact or fast AO
+whatever the scene's size) is not ported: the sphere count alone picks.
 """
 
 from __future__ import annotations
@@ -54,24 +57,27 @@ from .accel import (
 )
 from .camera import CameraParams, auto_camera, camera_frame
 from .config import RenderConfig, quantize
-from .gather import gather_chunk_data
+from .gather import gather_chunk_data_banded
 from .geometry import bond_edges as _bond_edges
 from .geometry import box_edges as _box_edges
 from .megakernel import (
     TILE_PX, OtherRecords, build_mega_params, light_row, render_image_mega,
-    stack_lights,
+    render_image_mega_banded, stack_lights,
 )
 from .scene import build_scene
+from .tracer import render_image as render_image_exact
 from .tracer_tiled import render_image_pallas_banded, render_image_tiled
 
 __all__ = ["TachyonRender", "CameraParams", "build_ao_lights", "save_image"]
 
 LIGHT_GRID = 32        # shadow grid cells per side, as the JAX renderer uses
-# bytes of (nb, nchunks, 8, 128) f32 candidate records one frame may gather;
-# past it the banded variant (ROADMAP B1f) is needed
+# bytes of (nb, nchunks, 8, 128) f32 candidate records one frame may gather
+# at once; past it the megakernel renders in bands of tile rows, each band
+# gathering at most this much (render_image_mega_banded), and
+# render_image_pallas gathers each of its bands' records
 RECORD_BUDGET_BYTES = 16 << 30
-# padded sphere counts up to this take the exact AO tracer (ROADMAP A6) in
-# the JAX renderer; fast AO applies above it (render.py:329-333)
+# padded sphere counts up to this take the exact AO tracer; fast AO applies
+# above it (render.py:330-334)
 AO_EXACT_MAX_SPHERES = 20000
 # the JAX renderer's megakernel limits for cylinders and rings
 # (render.py:424-431): cyl/ring candidates in one tile, and live cylinders +
@@ -174,7 +180,16 @@ class TachyonRender:
     ``render`` fills ``last_timings`` with host seconds per phase
     ("prepare", "scene_build", "accel_build", "ao_accel_build", "trace",
     "image_out", the JAX renderer's names), the card synchronised at each
-    phase's end at those verbosities only."""
+    phase's end at those verbosities only.
+
+    The JAX renderer's attributes ``use_tiling`` (True; False sends every
+    frame to the exact tracer) and ``use_pallas`` (False sends the frames
+    that would take the megakernel or ``render_image_pallas`` to
+    ``render_image_tiled``, or with AO or transparency to the exact tracer)
+    are there.  ``use_pallas`` is True on both backends: the JAX renderer
+    turns it off on its CPU backend, where its kernels would run in the
+    Pallas interpreter, while the port's CPU backend runs their plain
+    versions."""
 
     def __init__(
         self,
@@ -225,6 +240,8 @@ class TachyonRender:
             background=bg[:3],
         )
         self._seed = int(seed)
+        self.use_tiling = True
+        self.use_pallas = True
         self._input_refs = None
         self._scene_key = None
         self._scene = None
@@ -234,6 +251,7 @@ class TachyonRender:
         self._route_name = None
         self._ao_key = None
         self._ao = None
+        self._exact = None
 
     @property
     def backend(self) -> str:
@@ -279,11 +297,12 @@ class TachyonRender:
                      or (bond_colors is not None
                          and bool(np.any(np.asarray(bond_colors)[:, 3] < 1.0)))
                      or (len(box_color) > 3 and box_color[3] < 1.0))
-            scene = build_scene(
-                positions, colors, radii, bond_edges=bonds,
-                bond_colors=bond_colors, bond_radius=bond_radius,
-                box_edges=box, box_edge_radius=box_edge_radius,
-                box_color=box_color, device=self._device)
+            self._build_args = dict(
+                positions=positions, colors=colors, radii=radii,
+                bond_edges=bonds, bond_colors=bond_colors,
+                bond_radius=bond_radius, box_edges=box,
+                box_edge_radius=box_edge_radius, box_color=box_color)
+            scene = build_scene(**self._build_args, device=self._device)
             lo, hi = _scene_aabb(scene)
             n_other = int((scene.cyl_radius > 0).sum()
                           + (scene.ring_rout > 0).sum())
@@ -291,7 +310,7 @@ class TachyonRender:
             table = other_table(scene) if n_other else None
             self._scene = (scene, lo, hi, table, n_other, n_sph, alpha)
             self._scene_key = key
-            self._accel_key = self._accel = None
+            self._accel_key = self._accel = self._exact = None
         self._input_refs = (arrays, geom)
         return self._scene_key, self._scene
 
@@ -318,36 +337,33 @@ class TachyonRender:
 
     def _route(self, bins, n_other: int, n_sph: int, alpha: bool) -> str:
         """The renderer a frame takes, as the JAX renderer picks it
-        (render.py:391-445, 690-750): "mega" (the one-shot megakernel),
-        "pallas" (``render_image_pallas``, past the megakernel's limits for
-        cylinders and rings) or "tiled" (``render_image_tiled``, a scene of
-        cylinders and rings without a live sphere).  With AO or a
-        translucent scene (``alpha``) the last two are the exact tracer in
-        the JAX renderer, which is not ported (ROADMAP A6): that raises."""
+        (render.py:391-445, 690-750): "mega" (the megakernel), "pallas"
+        (``render_image_pallas``, past the megakernel's limits for cylinders
+        and rings), "tiled" (``render_image_tiled``: a scene of cylinders
+        and rings without a live sphere, or ``use_pallas`` off) or "exact"
+        (the exact tracer: AO or a translucent scene, ``alpha``, off the
+        megakernel)."""
         cfg = self._cfg
-        if not n_other:
+        mega = self.use_pallas and (n_sph or not n_other) and not (
+            n_other and (bins.k_other > OTHER_TILE_MAX or (
+                (cfg.shadows_enabled or cfg.ao_enabled)
+                and n_other > OTHER_SHADOW_MAX)))
+        if mega:
             return "mega"
-        why = None
-        if not n_sph:
-            why = "a scene of cylinders and rings without a live sphere"
-        elif bins.k_other > OTHER_TILE_MAX:
-            why = (f"{bins.k_other} cylinder + ring candidates in a tile (at "
-                   f"most {OTHER_TILE_MAX})")
-        elif (cfg.shadows_enabled or cfg.ao_enabled) and n_other > OTHER_SHADOW_MAX:
-            why = (f"{n_other} live cylinders + rings with shadows or AO (at "
-                   f"most {OTHER_SHADOW_MAX})")
-        if why is None:
-            return "mega"
-        if cfg.ao_enabled:
-            raise NotImplementedError(
-                f"{why} takes, in the JAX renderer, the exact AO tracer, "
-                "which is not ported yet (ROADMAP A6); pass ao=False")
-        if alpha:
-            raise NotImplementedError(
-                f"a translucent scene (alpha < 1) with {why} takes, in the JAX "
-                "renderer, the exact tracer, which is not ported yet (ROADMAP "
-                "A6)")
-        return "pallas" if n_sph else "tiled"
+        if cfg.ao_enabled or alpha:
+            return "exact"
+        return "pallas" if self.use_pallas and n_sph else "tiled"
+
+    def _exact_scene(self):
+        """The scene the exact tracer takes: the render scene on the card,
+        and on the CPU the same scene in float64 (render.py:236), built
+        once per scene."""
+        if self._device.type == "cuda":
+            return self._scene[0]
+        if self._exact is None:
+            self._exact = build_scene(**self._build_args,
+                                      dtype=torch.float64, device="cpu")
+        return self._exact
 
     def _accel_for(self, scene_key, scene_entry, camera, width, height, radii):
         """Per-view structures, rebuilt only when the scene or view changes:
@@ -356,7 +372,8 @@ class TachyonRender:
         with their occluder tables; for the tiled tracer ``accel`` is
         (frame, bins, chunk_data, lb), ``lb`` with the light cells of every
         kind, and ``other`` the tiles' cylinder and ring records."""
-        key = (scene_key, repr((camera.__dict__, width, height)))
+        key = (scene_key, repr((camera.__dict__, width, height)),
+               self.use_pallas)
         if key == self._accel_key:
             return self._route_name, self._accel, self._other
         scene, lo, hi, table, n_other, n_sph, alpha = scene_entry
@@ -364,19 +381,22 @@ class TachyonRender:
         frame = camera_frame(camera, width, height)
         bins = build_screen_bins(scene, frame, width, height, TILE_PX)
         route = self._route(bins, n_other, n_sph, alpha)
+        if route == "exact":
+            self._accel, self._other = (frame,), None
+            self._route_name, self._accel_key = route, key
+            return route, self._accel, None
         nb, nchunks, ch = bins.sph_chunks.shape
-        rec_bytes = nb * nchunks * ch * 32
-        if rec_bytes > RECORD_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"the frame's candidate records take {rec_bytes} bytes, past "
-                f"the {RECORD_BUDGET_BYTES}-byte budget; the banded render "
-                "is not ported yet (ROADMAP B1f)"
-            )
+        # past the budget the megakernel and render_image_pallas gather
+        # each band's records as they render it (chunk_data None); within
+        # it the frame's records are gathered once, a band of tiles at a
+        # time, so the gather's peak stays near the records' own size
+        one_shot = nb * nchunks * ch * 32 <= RECORD_BUDGET_BYTES
         lb = build_light_bins(scene, frame["light_dir"], grid=LIGHT_GRID,
                               other_kinds=route != "mega")
-        chunk_data = (gather_chunk_data(bins.sph_chunks, scene.sph_center,
-                                        scene.sph_radius, scene.sph_color)
-                      if n_sph or route == "mega" else None)
+        chunk_data = (gather_chunk_data_banded(
+            bins.sph_chunks, scene.sph_center, scene.sph_radius,
+            scene.sph_color) if one_shot and (n_sph or route == "mega")
+            else None)
         if route != "mega":
             # a scene on these routes has cylinders or rings, so its shadows
             # take the light cells of three kinds: the light-grid kernel
@@ -498,37 +518,54 @@ class TachyonRender:
              tuple(box_color)))
         scene = entry[0]
         t0 = mark("scene_build", t0)
-        if cfg.ao_enabled and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES:
-            raise NotImplementedError(
-                f"ambient occlusion on {scene.sph_center.shape[0]} padded "
-                f"spheres (at most {AO_EXACT_MAX_SPHERES}) takes the exact AO "
-                "tracer, which is not ported yet (ROADMAP A6); pass ao=False"
-            )
-        route, accel, other = self._accel_for(
-            scene_key, entry, camera, int(width), int(height), radii)
-        t0 = mark("accel_build", t0)
-        timings["accel_build"] -= timings.get("ao_accel_build", 0.0)
-        if route == "mega":
+        if not self.use_tiling or (
+                cfg.ao_enabled
+                and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES):
+            # exact AO on small scenes, and every frame without tiling,
+            # need no acceleration structure (render.py:330-341)
+            route, accel = "exact", (camera_frame(camera, int(width),
+                                                  int(height)),)
+            self._route_name, self._accel_key = route, None
+        else:
+            route, accel, other = self._accel_for(
+                scene_key, entry, camera, int(width), int(height), radii)
+            t0 = mark("accel_build", t0)
+            timings["accel_build"] -= timings.get("ao_accel_build", 0.0)
+        if route == "exact":
+            frame = accel[0]
+            with torch.no_grad():
+                img_f = render_image_exact(
+                    self._exact_scene(), frame["origin"], frame["lowleft"],
+                    frame["iplaneright"], frame["iplaneup"], frame["view"],
+                    frame["light_dir"], cfg._replace(transparency=entry[6]),
+                    int(width), int(height), bool(frame["perspective"]),
+                    self._seed)
+        elif route == "mega":
             frame, bins, chunk_data, lights, params = accel
             S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
             # a translucent frame peels max_trans layers, or composites one
             # when that is 1 (render.py:642-645)
             peel1 = entry[6] and cfg.max_trans == 1
             n_peel = cfg.max_trans if entry[6] and not peel1 else 1
-            img_f = render_image_mega(
-                chunk_data, bins.sph_zmin, lights, params, self._seed,
-                S=S, width=int(width), height=int(height),
-                tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=LIGHT_GRID,
-                eps=cfg.eps, perspective=bool(frame["perspective"]),
-                shadows=lights is not None, quantized=device_output,
-                other=other, n_peel=n_peel, peel1=peel1,
-            )
+            kw = dict(S=S, width=int(width), height=int(height),
+                      grid_n=LIGHT_GRID, eps=cfg.eps,
+                      perspective=bool(frame["perspective"]),
+                      shadows=lights is not None, quantized=device_output,
+                      other=other, n_peel=n_peel, peel1=peel1)
+            if chunk_data is None:
+                img_f = render_image_mega_banded(
+                    scene, bins, lights, params, self._seed,
+                    max_band_bytes=RECORD_BUDGET_BYTES, **kw)
+            else:
+                img_f = render_image_mega(
+                    chunk_data, bins.sph_zmin, lights, params, self._seed,
+                    tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, **kw)
         else:
             img_f = self._render_tiled(route, accel, other, int(width),
                                        int(height))
-            if device_output:
-                img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
-                                    255.0).to(torch.uint8)
+        if device_output and route != "mega":
+            img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
+                                255.0).to(torch.uint8)
         t0 = mark("trace", t0)
         if device_output:
             self._print_timings()

@@ -14,24 +14,40 @@ package runs it: the ``threefry2x32`` implementation with
   * the 32 random bits of element i of an output (i its row-major flat
     index) are the xor of the two words of threefry2x32 of the counter pair
     (i >> 32, i & 0xFFFFFFFF) under the key;
-  * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2),
-    subtracts 1, scales to [minval, maxval) and clamps below at minval.
+  * ``split(key, n)`` is the stack of threefry2x32 of the counter pairs
+    (0, i) under the key, i < n (the "foldlike" split: key i of a split is
+    ``fold_in(key, i)``);
+  * the 64 random bits of element i are the first word of the same pair,
+    shifted up by 32, or the second;
+  * ``uniform`` keeps the top 23 (float32) or 52 (float64) bits as the
+    mantissa of a float in [1, 2), subtracts 1, scales to [minval, maxval)
+    and clamps below at minval;
+  * ``normal`` is sqrt(2) * erfinv(u), u uniform in (-1, 1) from the open
+    interval's lower end nextafter(-1, 0) (``jax/_src/random.py:867``).
+    ``torch.erfinv`` is not XLA's polynomial, so ``normal`` is not bit for
+    bit: ``tests/test_torch_tracer.py`` holds it within the bound it states.
+    A float32 draw takes erfinv in float64 and rounds it once, so that the
+    card and the CPU draw the same floats (their float32 erfinv differ).
 
 The words are held as int64 tensors masked to 32 bits (torch's ``>>`` on
 int32 is arithmetic), on the caller's device, and every function is
 elementwise over its counters, so keys may carry leading batch dimensions
-(one key per tile).  The exact AO tracer's hemisphere sampling (ROADMAP A6)
-draws from the same generator.
+(one key per tile).  The exact tracer (``tracer.py``) draws its AA jitter,
+its AO hemisphere rays and its peels' keys from the same generator
+(``mdapy_tpu/render/tracer.py:251-252, 292, 333-353``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["prng_key", "fold_in", "random_bits", "uniform", "threefry2x32"]
+__all__ = ["prng_key", "fold_in", "split", "random_bits", "uniform",
+           "normal", "threefry2x32"]
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -65,23 +81,52 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o0, o1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits per element as int64 in [0, 2**32): ``key`` (..., 2)
-    gives an output of shape ``key.shape[:-1] + shape``, each key drawing
-    its own ``shape`` block as ``jax.random.bits(key, shape)`` does."""
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one key (2,) -> (num, 2)."""
+    return fold_in(key[None, :], torch.arange(int(num), device=key.device))
+
+
+def _words(key: torch.Tensor, shape):
     n = 1
     for s in shape:
         n *= int(s)
     idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    o0, o1 = threefry2x32(key[..., 0:1], key[..., 1:2], idx >> 32, idx & _M)
+    return threefry2x32(key[..., 0:1], key[..., 1:2], idx >> 32, idx & _M)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """32 random bits per element as int64 in [0, 2**32): ``key`` (..., 2)
+    gives an output of shape ``key.shape[:-1] + shape``, each key drawing
+    its own ``shape`` block as ``jax.random.bits(key, shape)`` does."""
+    o0, o1 = _words(key, shape)
     return (o0 ^ o1).reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = random_bits(key, shape)
-    one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, (one_to_two - 1.0) * (hi - lo) + lo)
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` for float32
+    or float64."""
+    lead = tuple(key.shape[:-1])
+    if dtype == torch.float32:
+        bits = random_bits(key, shape)
+        floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        o0, o1 = _words(key, shape)
+        # the top 52 of the 64 bits (o0 << 32 | o1), below the exponent of 1.0
+        mant = (o0 << 20) | (o1 >> 12)
+        floats = (mant | 0x3FF0000000000000).view(torch.float64)
+        floats = floats.reshape(lead + tuple(shape))
+    else:
+        raise TypeError(f"uniform draws float32 or float64, not {dtype}")
+    lo = torch.tensor(minval, dtype=dtype, device=key.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    return torch.maximum(lo, (floats - 1.0) * (hi - lo) + lo)
+
+
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: sqrt(2) erfinv(u), u
+    uniform on [nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.array(-1.0, _NP[dtype]), _NP[dtype](0.0)))
+    u = uniform(key, shape, lo, 1.0, dtype)
+    sqrt2 = torch.tensor(np.array(np.sqrt(2), _NP[dtype]), device=key.device)
+    return sqrt2 * torch.erfinv(u.double()).to(dtype)

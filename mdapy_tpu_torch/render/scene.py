@@ -1,7 +1,8 @@
 """Scene assembly: world-space primitives -> flipped, padded torch tensors.
 
 Port of ``mdapy_tpu/render/scene.py`` (``Scene`` :41, ``build_scene`` :96,
-``_pad_to`` :28, ``_round_up`` :35): one sphere per particle, and for every
+``scene_from_arrays`` :185, ``_pad_to`` :28, ``_round_up`` :35): one sphere
+per particle, and for every
 bond or box edge a cylinder plus two ring caps (``add_edges`` :132).  All
 coordinates are z-flipped into Tachyon space (tvec, tachyon_render.h:58), and
 each kind is padded to a multiple of ``pad`` (cylinders and rings to at least
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["Scene", "build_scene"]
+__all__ = ["Scene", "build_scene", "scene_from_arrays"]
 
 FLIP = np.array([1.0, 1.0, -1.0])
 
@@ -138,4 +139,46 @@ def build_scene(
         ring_normal=put(ring[1], nr, fill=1.0),
         ring_rout=put(ring[2], nr, fill=-1.0),
         ring_color=put(ring[3], nr),
+    )
+
+
+def scene_from_arrays(positions, colors, radii, dtype=None,
+                      device=None) -> Scene:
+    """A sphere-only Scene built with torch ops, for the differentiable path.
+
+    Unlike ``build_scene`` (host numpy, filtering and padding), nothing
+    leaves the autograd graph, so gradients flow from pixels back to
+    ``positions`` (N, 3), ``radii`` (N,) and ``colors`` (N, 4).  The scene
+    lies on ``device``; by default that is the device of ``positions`` when
+    it is a tensor, and otherwise the card, so a CPU scene from numpy
+    arrays takes ``device="cpu"``.  ``dtype`` casts the positions, and the
+    rest follow them.  The cylinder and ring slots are 8 dummy rows of
+    radius -1."""
+    if device is None:
+        device = (positions.device if isinstance(positions, torch.Tensor)
+                  else "cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "scene_from_arrays on the card needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' (or CPU "
+            "tensors) to build the scene on the CPU")
+    pos = torch.as_tensor(positions, device=device)
+    if dtype is not None:
+        pos = pos.to(dtype)
+    dt, dev = pos.dtype, pos.device
+    pos = pos * torch.as_tensor(FLIP, dtype=dt, device=dev)
+    col = torch.as_tensor(colors, device=dev).to(dt)
+    rad = torch.as_tensor(radii, device=dev).to(dt)
+    k = 8
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dt, device=dev)
+
+    return Scene(
+        sph_center=pos, sph_radius=rad, sph_color=col,
+        cyl_base=full((k, 3), 0.0), cyl_axis=full((k, 3), 1.0),
+        cyl_radius=full((k,), -1.0), cyl_color=full((k, 4), 0.0),
+        ring_center=full((k, 3), 0.0), ring_normal=full((k, 3), 1.0),
+        ring_rout=full((k,), -1.0), ring_color=full((k, 4), 0.0),
     )

@@ -1,4 +1,4 @@
-"""Tile-binned tracer for opaque scenes: the heavy-bond and sphere-less paths.
+"""Tile-binned tracer: the heavy-bond and sphere-less paths.
 
 Port of ``mdapy_tpu/render/tracer_tiled.py``: ``render_image_pallas`` (:471)
 and ``render_image_tiled`` (:331), with ``_ray_box_texit`` (:89), the
@@ -37,8 +37,17 @@ cylinder/ring pass takes tiles of like candidate count together, and the
 shadow pass walks each lit ray's cell lists in steps.  The JAX shadow pass's
 windows of 32 and its ``start = #keys <= tau`` suffix are a traversal order,
 not a result: a lit point is blocked when, in its light cell, a candidate of
-any kind with key > tau is hit by the exact ray test.  Transparency peeling
-(``cfg.transparency``) is not ported (ROADMAP A7t).
+any kind with key > tau is hit by the exact ray test.
+
+``render_image_tiled`` also peels translucent scenes (``cfg.transparency``,
+``tracer_tiled.py:433-448``): ``max_trans`` peels per ray, each from the
+last hit plus eps along the ray, composited with weight W (a miss is the
+background at alpha 1), and the residual W sees the background.  Its shadow
+rays are then transmissions (``_shadow_filter_lb``'s ``with_trans``,
+:216-247): every candidate with key > tau that the ray hits multiplies by
+1 - alpha, one at alpha >= 0.99999 blocks, and the walk runs to the end of
+the cell's suffix.  ``render_image_pallas`` refuses transparency, as the
+JAX function asserts (:494).
 """
 
 from __future__ import annotations
@@ -165,12 +174,19 @@ def _other_hit(other, o, d, eps: float, batches=None):
     return bt, widx
 
 
-def _walk_cells(kind, cell, tau, blocked, test) -> None:
-    """Mark in ``blocked`` (N,) the rays with a candidate of ``kind`` in
-    their light cell whose key exceeds the ray's ``tau`` and which
-    ``test(rays, ids)`` (index tensors (A, 1) and (A, W) -> bool (A, W))
-    finds hit.  A cell's candidates run by descending key, so a ray's walk
-    ends at its first hit or at the first key <= tau."""
+def _walk_cells(kind, cell, tau, blocked, test, alpha=None,
+                filt=None) -> None:
+    """Walk each ray's light cell of ``kind``: the candidates whose key
+    exceeds the ray's ``tau`` and which ``test(rays, ids)`` (index tensors
+    (A, 1) and (A, W) -> bool (A, W)) finds hit.  A cell's candidates run
+    by descending key, so a walk ends at the first key <= tau.
+
+    Without ``alpha`` a hit marks the ray in ``blocked`` (N,) and ends its
+    walk.  With ``alpha`` (``alpha(ids)``, the transmissions of
+    ``tracer_tiled.py:216-247``) a hit at alpha >= 0.99999 does that, and
+    every other hit multiplies the ray's ``filt`` (N,) by 1 - its alpha,
+    window by window to the end of the suffix.  Rays already blocked are
+    not walked: their filter no longer counts."""
     cnt = kind.count[cell]
     off = kind.offs[cell]
     step = torch.arange(_SHADOW_WINDOW, device=tau.device)
@@ -185,16 +201,27 @@ def _walk_cells(kind, cell, tau, blocked, test) -> None:
             idx = off[active, None] + torch.minimum(kk, n - 1)
             stop = (kk >= n) | (kind.keys[idx] <= tau[active, None])
             stop = torch.cumsum(stop.to(torch.int32), dim=1) > 0
-            hit = (test(active[:, None], kind.ids[idx]) & ~stop).any(dim=1)
-            blocked[active[hit]] = True
-            active = active[~hit & ~stop[:, -1]]
+            ids = kind.ids[idx]
+            hit = test(active[:, None], ids) & ~stop
+            if alpha is None:
+                done = hit.any(dim=1)
+            else:
+                a = alpha(ids)
+                opaque = a >= 0.99999
+                done = (hit & opaque).any(dim=1)
+                filt[active] *= torch.where(hit & ~opaque, 1.0 - a,
+                                            1.0).prod(dim=1)
+            blocked[active[done]] = True
+            active = active[~done & ~stop[:, -1]]
             k0 += _SHADOW_WINDOW
 
 
-def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float):
+def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float,
+                      with_trans: bool = False):
     """True where the point ``hit`` (N, 3) is shadowed: in its light-grid
     cell, a sphere, cylinder or ring whose far key exceeds the point's depth
-    along the light is hit by the ray from the point toward the light."""
+    along the light is hit by the ray from the point toward the light.
+    ``with_trans``: the transmission in [0, 1] instead (N,) f32."""
     hx, hy, hz = hit.unbind(-1)
     lx, ly, lz = light.unbind(0)
     u = hx * lb.e1[0] + hy * lb.e1[1] + hz * lb.e1[2] - lb.org[0]
@@ -204,6 +231,11 @@ def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float):
     gy = torch.clamp(torch.floor(v * lb.inv_cell), 0, lb.grid - 1).to(torch.int64)
     cell = gy * lb.grid + gx
     blocked = torch.zeros(hit.shape[0], dtype=torch.bool, device=hit.device)
+    filt = torch.ones(hit.shape[0], dtype=torch.float32, device=hit.device)
+
+    def walk(kind, test, alpha):
+        _walk_cells(kind, cell, tau, blocked, test,
+                    alpha if with_trans else None, filt)
 
     if lb.ids.shape[0]:
         cx, cy, cz = scene.sph_center.unbind(-1)
@@ -219,7 +251,7 @@ def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float):
             sq = ieee.sqrt(torch.where(ok, disc, 0.0))
             return ok & ((-b - sq > eps) | (sq - b > eps))
 
-        _walk_cells(lb.sph, cell, tau, blocked, t_sph)
+        walk(lb.sph, t_sph, lambda ids: scene.sph_color[ids, 3])
 
     if lb.cyl is not None and (lb.cyl.ids.shape[0] or lb.ring.ids.shape[0]):
         # rows of the cyl/ring table (cylinders, then rings) and their
@@ -243,8 +275,10 @@ def _shadow_filter_lb(hit, scene, lb: LightBins, light, eps: float):
                     eps) & (rr[i] > 0.0)
             return test
 
-        _walk_cells(lb.cyl, cell, tau, blocked, t_other(0))
-        _walk_cells(lb.ring, cell, tau, blocked, t_other(ncyl))
+        walk(lb.cyl, t_other(0), lambda ids: table[ids, 7])
+        walk(lb.ring, t_other(ncyl), lambda ids: table[ids + ncyl, 7])
+    if with_trans:
+        return torch.where(blocked, 0.0, filt)
     return blocked
 
 
@@ -281,7 +315,7 @@ def _raygen(origin, lowleft, ipr, ipu, view, cfg, perspective: bool, seed,
 def _closest(scene, bins, chunk_data, other, o, d, eps: float,
              spheres_first: bool, other_batches=None):
     """Nearest primitive per ray: t (nb, R) (BIG on a miss), the unflipped
-    normal and the colour (nb, R, 3).  Spheres go through the chunked
+    normal (nb, R, 3) and the colour with its alpha (nb, R, 4).  Spheres go through the chunked
     closest hit, cylinders and rings through the dense pass; whichever kind
     comes second replaces the first only at a strictly smaller t."""
     nb, R = o.shape[:2]
@@ -296,11 +330,11 @@ def _closest(scene, bins, chunk_data, other, o, d, eps: float,
         n0 = hit0 - rec[..., 0:3]
         n0 = n0 / torch.linalg.norm(n0, dim=-1, keepdim=True).clamp(min=1e-30)
         N = torch.where(have[..., None], n0, 0.0)
-        col = torch.where(have[..., None], rec[..., 4:7], 0.0)
+        col = torch.where(have[..., None], rec[..., 4:8], 0.0)
     else:
         best_t = torch.full((nb, R), BIG, dtype=f32, device=dev)
         N = torch.zeros((nb, R, 3), dtype=f32, device=dev)
-        col = torch.zeros((nb, R, 3), dtype=f32, device=dev)
+        col = torch.zeros((nb, R, 4), dtype=f32, device=dev)
     if other is not None and other.orec.shape[0]:
         t_o, widx = _other_hit(other, o, d, eps, other_batches)
         # spheres first: a cylinder or ring wins at a strictly smaller t;
@@ -317,14 +351,15 @@ def _closest(scene, bins, chunk_data, other, o, d, eps: float,
         n_c = rel - (rel * ahat).sum(-1, keepdim=True) * ahat
         n_c = n_c / torch.linalg.norm(n_c, dim=-1, keepdim=True).clamp(min=1e-30)
         N.reshape(-1, 3)[sel] = torch.where(row[:, 11:12] == 2.0, ahat, n_c)
-        col.reshape(-1, 3)[sel] = row[:, 4:7]
+        col.reshape(-1, 4)[sel] = row[:, 4:8]
         best_t.reshape(-1)[sel] = t_w
     return best_t, N, col
 
 
 def _shade(scene, lb, o, d, best_t, N, col, light, bg, cfg, shadows: bool,
-           light_records, S: int):
-    """Facing flip, Lambert term, shadow filter, AA mean -> (nb, P, 3)."""
+           light_records):
+    """Facing flip, Lambert term, shadow filter -> (nb, R, 3) RGB and the
+    miss mask (nb, R)."""
     nb, R = best_t.shape
     dev, f32 = o.device, torch.float32
     missed = best_t >= BIG_DEPTH      # a miss holds BIG; no hit lies this far
@@ -348,6 +383,10 @@ def _shade(scene, lb, o, d, best_t, N, col, light, bg, cfg, shadows: bool,
             torch.stack([gx, gy], dim=-1).to(torch.int32),
             lit.to(torch.int32), lrec, loffs, lcnt,
             grid_n=lb.grid, eps=cfg.eps)
+    elif shadows and cfg.transparency:
+        sel = torch.nonzero(lit.reshape(-1)).flatten()
+        filt.reshape(-1)[sel] = _shadow_filter_lb(
+            hit.reshape(-1, 3)[sel], scene, lb, light, cfg.eps, True)
     elif shadows:
         sel = torch.nonzero(lit.reshape(-1)).flatten()
         blocked = _shadow_filter_lb(hit.reshape(-1, 3)[sel], scene, lb, light,
@@ -358,8 +397,7 @@ def _shade(scene, lb, o, d, best_t, N, col, light, bg, cfg, shadows: bool,
     else:
         diffuse = torch.zeros((nb, R), dtype=f32, device=dev)
     shade = DIFFUSE_K * diffuse + AMBIENT
-    rgb = torch.where(missed[..., None], bg, col * shade[..., None])
-    return rgb.reshape(nb, S, R // S, 3).mean(dim=1)
+    return torch.where(missed[..., None], bg, col * shade[..., None]), missed
 
 
 def _render(scene, bins, chunk_data, lb, origin, lowleft, iplaneright,
@@ -369,10 +407,6 @@ def _render(scene, bins, chunk_data, lb, origin, lowleft, iplaneright,
             per_tile_jitter: bool, spheres_first: bool, other_batches=None):
     if cfg.ao_enabled:
         raise ValueError("the tiled tracer does no ambient occlusion")
-    if cfg.transparency:
-        raise NotImplementedError(
-            "transparency peeling in the tiled tracer is not ported yet "
-            "(ROADMAP A7t)")
     shadows = cfg.shadows_enabled and cfg.direct_light_enabled
     if (shadows and light_records is None and other is not None
             and other.orec.shape[0] and lb.cyl is None):
@@ -389,10 +423,28 @@ def _render(scene, bins, chunk_data, lb, origin, lowleft, iplaneright,
     S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
     o, d = _raygen(origin, lowleft, ipr, ipu, view, cfg, perspective, seed,
                    tile_px, tiles_x, tiles_y, ty_offset, per_tile_jitter)
-    best_t, N, col = _closest(scene, bins, chunk_data, other, o, d, cfg.eps,
-                              spheres_first, other_batches)
-    out = _shade(scene, lb, o, d, best_t, N, col, light, bg, cfg, shadows,
-                 light_records, S)
+    if not cfg.transparency:
+        best_t, N, col = _closest(scene, bins, chunk_data, other, o, d,
+                                  cfg.eps, spheres_first, other_batches)
+        rgb, _ = _shade(scene, lb, o, d, best_t, N, col[..., :3], light, bg,
+                        cfg, shadows, light_records)
+    else:
+        # peels along the ray (tracer_tiled.py:433-448)
+        o_cur = o
+        weight = torch.ones(o.shape[:2], dtype=torch.float32, device=dev)
+        acc = torch.zeros_like(o)
+        for _ in range(cfg.max_trans):
+            best_t, N, col = _closest(scene, bins, chunk_data, other, o_cur,
+                                      d, cfg.eps, spheres_first, other_batches)
+            srgb, missed = _shade(scene, lb, o_cur, d, best_t, N, col[..., :3],
+                                  light, bg, cfg, shadows, light_records)
+            a = torch.where(missed, 1.0, col[..., 3])
+            acc = acc + (weight * a)[..., None] * srgb
+            weight = weight * (1.0 - a)
+            tsafe = torch.where(missed, 0.0, best_t)
+            o_cur = o_cur + (tsafe + cfg.eps)[..., None] * d
+        rgb = acc + weight[..., None] * bg
+    out = rgb.reshape(rgb.shape[0], S, -1, 3).mean(dim=1)
     img = out.reshape(tiles_y, tiles_x, tile_px, tile_px, 3)
     img = img.permute(0, 2, 1, 3, 4).reshape(tiles_y * tile_px,
                                              tiles_x * tile_px, 3)
@@ -428,7 +480,11 @@ def render_image_pallas(scene, bins: ScreenBins, chunk_data, lb: LightBins,
     (``build_light_bins(..., other_kinds=True)``).  ``other`` may pass the
     tiles' cyl/ring records (``OtherRecords``, ``band_other``) when the
     caller keeps them; else they are gathered from ``bins``;
-    ``other_batches`` their ``_tile_batches``."""
+    ``other_batches`` their ``_tile_batches``.  Opaque scenes only: a
+    ``cfg.transparency`` raises, as the JAX function asserts."""
+    if cfg.transparency:
+        raise ValueError("render_image_pallas renders opaque scenes; "
+                         "render_image_tiled peels translucent ones")
     return _render(
         scene, bins, chunk_data, lb, origin, lowleft, iplaneright, iplaneup,
         view, light_dir, cfg, width, height, perspective, seed, tile_px,
@@ -450,7 +506,8 @@ def render_image_pallas_banded(scene, bins: ScreenBins, chunk_data,
     (render.py:712-742): every band draws its jitter from the same key over
     its own tiles, so the banding is part of the picture.  ``frame`` is the
     ``camera_frame`` dict; ``bins``, ``chunk_data`` and ``other`` cover the
-    whole frame."""
+    whole frame, and a ``chunk_data`` of None gathers each band's records
+    in turn."""
     cam = tuple(frame[k] for k in ("origin", "lowleft", "iplaneright",
                                    "iplaneup", "view", "light_dir"))
     other = _other_of(scene, bins, other)
@@ -461,8 +518,12 @@ def render_image_pallas_banded(scene, bins: ScreenBins, chunk_data,
     for ty0 in range(0, bins.tiles_y, band_rows):
         ty1 = min(bins.tiles_y, ty0 + band_rows)
         b0, b1 = ty0 * bins.tiles_x, ty1 * bins.tiles_x
+        sub = band_bins(bins, ty0, ty1)
+        cd = (chunk_data[b0:b1] if chunk_data is not None else
+              gather_chunk_data(sub.sph_chunks, scene.sph_center,
+                                scene.sph_radius, scene.sph_color))
         bands.append(render_image_pallas(
-            scene, band_bins(bins, ty0, ty1), chunk_data[b0:b1], lb, *cam,
+            scene, sub, cd, lb, *cam,
             cfg, width, (ty1 - ty0) * bins.tile_px, bool(frame["perspective"]),
             seed, bins.tile_px, bins.tiles_x, ty1 - ty0, ty_offset=ty0,
             do_flip=False, light_records=light_records,
@@ -478,7 +539,8 @@ def render_image_tiled(scene, bins: ScreenBins, lb: LightBins, origin,
                        tile_px: int, tiles_x: int, tiles_y: int,
                        chunk_data=None, other=None) -> torch.Tensor:
     """Render (height, width, 3) f32 RGB via the screen bins, in the order
-    cylinders, rings, spheres; the path of a scene without a live sphere.
+    cylinders, rings, spheres, opaque or translucent; the path of a scene
+    without a live sphere.
 
     ``lb`` carries the light cells of every kind.  ``chunk_data`` and
     ``other`` may pass the sphere and cyl/ring records when the caller keeps

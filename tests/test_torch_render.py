@@ -157,13 +157,17 @@ def test_render_matches_jax_renderer():
 
 
 def test_unported_options_raise(monkeypatch):
+    """Every route the JAX renderer takes renders: the options that raised
+    before the exact tracer (A6) and the banded megakernel (B1f) were
+    ported take those."""
     from mdapy_tpu_torch.render import render as trender
 
     pos, colors, radii = _fcc_scene(2)
     # AO at or below the fast-AO threshold takes the exact tracer (A6)
     ao = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ao.render(pos, colors, radii, width=32, height=32)
+    exact = ao.render(pos, colors, radii, width=32, height=32)
+    assert ao._route_name == "exact" and exact[..., :3].std() > 1
+    assert ao._exact.sph_center.dtype == torch.float64
     half = colors.copy()
     half[0, 3] = 0.5
     monkeypatch.setattr(trender, "AO_EXACT_MAX_SPHERES", 0)
@@ -175,15 +179,15 @@ def test_unported_options_raise(monkeypatch):
     edges = np.stack([pos[:4], pos[4:8]], axis=1)       # 4 cylinders, 8 rings
     kw = dict(width=32, height=32)
     # past the JAX package's cyl/ring bounds: render_image_pallas when
-    # opaque, the exact tracer (A6) with AO
+    # opaque, the exact tracer with AO
     want = ren.render(pos, colors, radii, bond_edges=edges, **kw)
     assert ren._route_name == "mega"
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 8)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     got = ren.render(pos, colors, radii, bond_edges=edges, **kw)
     assert ren._route_name == "pallas" and got.shape == (32, 32, 4)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ao.render(pos, colors, radii, box_edges=edges, **kw)
+    got = ao.render(pos, colors, radii, box_edges=edges, **kw)
+    assert ao._route_name == "exact" and got[..., :3].std() > 1
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 512)
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 11)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
@@ -192,15 +196,16 @@ def test_unported_options_raise(monkeypatch):
     # AA is on, and the two routes jitter differently: the frames are alike,
     # not equal
     assert np.abs(got.astype(np.int32) - want).mean() < 2.0
-    with pytest.raises(NotImplementedError, match="A6"):
-        ao.render(pos, colors, radii, bond_edges=edges, **kw)
-    # cylinders without a live sphere: render_image_tiled, A6 with AO
+    got = ao.render(pos, colors, radii, bond_edges=edges, **kw)
+    assert ao._route_name == "exact" and got[..., :3].std() > 1
+    # cylinders without a live sphere: render_image_tiled, the exact tracer
+    # with AO
     none = (np.zeros((0, 3)), np.zeros((0, 4), np.float32), np.zeros(0, np.float32))
     cam = mdapy_tpu_torch.preset_camera("perspective", pos, max_radius=1.28)
     got = ren.render(*none, bond_edges=edges, camera=cam, **kw)
     assert ren._route_name == "tiled" and got[..., :3].std() > 1
-    with pytest.raises(NotImplementedError, match="A6"):
-        ao.render(*none, bond_edges=edges, camera=cam, **kw)
+    got = ao.render(*none, bond_edges=edges, camera=cam, **kw)
+    assert ao._route_name == "exact" and got[..., :3].std() > 1
     # the global bound holds only where shadows or AO test occluders
     flat = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False, shadows=False)
     assert flat.render(pos, colors, radii, bond_edges=edges, **kw).shape == (32, 32, 4)
@@ -216,19 +221,29 @@ def test_unported_options_raise(monkeypatch):
         assert got.shape == (32, 32, 4) and got[..., :3].std() > 1
     got = ren.render(pos, half, radii, width=32, height=32)
     assert ren._route_name == "mega" and ren._scene[6]
-    # ... and past the cylinder limits, the exact tracer in the JAX
-    # renderer (A6)
+    # ... and past the cylinder limits, the exact tracer
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 11)
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ren.render(pos, colors, radii, box_edges=edges,
-                   box_color=(1.0, 1.0, 1.0, 0.5), **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ren.render(pos, half, radii, bond_edges=edges, **kw)
+    for extra in (dict(box_edges=edges, box_color=(1.0, 1.0, 1.0, 0.5)),
+                  dict(bond_edges=edges)):
+        c = colors if "box_edges" in extra else half
+        got = ren.render(pos, c, radii, **extra, **kw)
+        assert ren._route_name == "exact" and ren._scene[6]
+        assert got[..., :3].std() > 1
+    # past the record budget the megakernel renders in bands of tile rows
+    # (B1f): one band a tile row here; with AA off the bands trace the
+    # one-shot frame's rays, their image-plane corners moved in float32
     monkeypatch.setattr(trender, "OTHER_SHADOW_MAX", 12)
+    flat = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False,
+                                         antialiasing=False)
+    one = flat.render(pos, colors, radii, width=32, height=40)
     monkeypatch.setattr(trender, "RECORD_BUDGET_BYTES", 1024)
-    with pytest.raises(NotImplementedError, match="B1f"):
-        ren.render(pos, colors, radii, width=32, height=32)
+    flat = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False,
+                                         antialiasing=False)
+    banded = flat.render(pos, colors, radii, width=32, height=40)
+    assert flat._route_name == "mega" and flat._accel[2] is None
+    d = np.abs(banded.astype(np.int32) - one).max(axis=2)
+    assert int((d > 1).sum()) == 0 and banded[..., :3].std() > 1
 
 
 def test_cuda_backend_refuses_without_card(monkeypatch):
@@ -254,7 +269,12 @@ def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
     from the backend's name ("tpu" there, "cuda" here); "gpu" means "cuda"
     and "auto" resolves to "cuda" when a card is visible, else to "cpu";
     ``verbosity`` is checked as the JAX renderer checks it, and every
-    ``render`` fills ``last_timings`` with the JAX renderer's phase names."""
+    ``render`` fills ``last_timings`` with the JAX renderer's phase names.
+    The JAX renderer's attributes ``use_tiling`` and ``use_pallas`` are
+    there, True by default; ``use_pallas`` is True on the CPU as well
+    (the port's CPU backend runs the kernels' plain versions, not an
+    interpreter), and ``use_tiling = False`` sends a frame to the exact
+    tracer."""
     import inspect
 
     for name in ("__init__", "render", "render_system"):
@@ -266,6 +286,12 @@ def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
                 assert tp[k].default == jp[k].default, (name, k)
     init = inspect.signature(mdapy_tpu_torch.TachyonRender.__init__).parameters
     assert init["backend"].default == "cuda"
+    jren = mdapy_tpu.TachyonRender(backend="cpu")
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu")
+    for attr in ("use_tiling", "use_pallas"):
+        assert isinstance(getattr(jren, attr), bool)
+        assert getattr(ren, attr) is True
+    assert jren.use_tiling is True and jren.use_pallas is False
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert mdapy_tpu_torch.TachyonRender(backend="auto").backend == "cpu"
@@ -303,6 +329,13 @@ def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
     quiet.render(pos, colors, radii, width=32, height=32)
     assert tuple(quiet.last_timings) == phases
     assert capsys.readouterr().out == ""
+    # without tiling: the exact tracer, which builds no acceleration
+    # structure (as in the JAX renderer)
+    quiet.use_tiling = False
+    quiet.render(pos, colors, radii, width=32, height=32)
+    assert quiet._route_name == "exact"
+    assert tuple(quiet.last_timings) == ("prepare", "scene_build", "trace",
+                                         "image_out")
 
 
 def test_port_imports_no_jax():
@@ -318,6 +351,9 @@ def test_port_imports_no_jax():
         "img = m.TachyonRender(backend='cpu', ao=False).render("
         "pos, col, rad, width=48, height=32)\n"
         "assert len(pos) == 32 and img.shape == (32, 48, 4) and img.std() > 1\n"
+        "r = m.TachyonRender(backend='cpu', ao_samples=4, aa_samples=2)\n"
+        "img = r.render(pos, col, rad, width=48, height=32)\n"
+        "assert r._route_name == 'exact' and img.std() > 1\n"
         "m.render.render.AO_EXACT_MAX_SPHERES = 0\n"
         "img = m.TachyonRender(backend='cpu', ao_samples=4).render("
         "pos, col, rad, width=48, height=32)\n"

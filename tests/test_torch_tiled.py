@@ -10,6 +10,7 @@ fed the same bins by ``convert.py``, and the whole heavy-bond slice through
 plain versions on the card.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -437,7 +438,8 @@ def test_render_image_tiled_matches_jax(kind):
     S = 3 (per-tile ``fold_in`` jitter), shadows on, against the JAX
     function in float32, at eps = 1e-2; the bound of the bond scene above
     (measured 0 and 7 pixels over 2e-3; without the atoms 187 at eps =
-    4e-4, the thin bonds' self-occlusion)."""
+    4e-4, the thin bonds' self-occlusion).  The same with transparency
+    (ROADMAP A7t), at the same bound."""
     frame, jscene, jb, jlb, _, tscene, tb, tlb, _ = _accel(kind, "perspective")
     assert (jb.sph_chunks is None and jlb.sph is None) == (kind == "nospheres")
     assert jb.cyl is not None
@@ -457,10 +459,27 @@ def test_render_image_tiled_matches_jax(kind):
         tscene, tb, tlb, *cam, tcfg._replace(shadows_enabled=False), W, H,
         True, 7, 16, jb.tiles_x, jb.tiles_y).numpy()
     assert int((np.abs(flat - img).max(axis=2) > 0.1).sum()) > 20
-    with pytest.raises(NotImplementedError, match="A7t"):
-        tracer_tiled.render_image_tiled(
-            tscene, tb, tlb, *cam, tcfg._replace(transparency=True), W, H,
-            True, 7, 16, jb.tiles_x, jb.tiles_y)
+    # and it peels a translucent scene: every other atom at alpha 0.4, the
+    # cylinders and rings at 0.6, four peels and transmitted shadows
+    # (``with_trans``), against the JAX function on the same colours
+    glass = dataclasses.replace(
+        jscene, sph_color=jscene.sph_color.at[::2, 3].set(0.4),
+        cyl_color=jscene.cyl_color.at[:, 3].set(0.6),
+        ring_color=jscene.ring_color.at[:, 3].set(0.6))
+    tcfg = tcfg._replace(transparency=True)
+    ref = np.asarray(jtiled.render_image_tiled(
+        glass, jb, jlb, *cam, cfg._replace(transparency=True), W, H, True, 7,
+        16, jb.tiles_x, jb.tiles_y))
+    tglass = scene_from_numpy(glass, device="cpu")
+    peeled = tracer_tiled.render_image_tiled(
+        tglass, tb, tlb, *cam, tcfg, W, H, True, 7, 16, jb.tiles_x,
+        jb.tiles_y).numpy()
+    _image_close(peeled, ref, 40, 1e-3)
+    assert int((np.abs(peeled - img).max(axis=2) > 0.05).sum()) > 100
+    with pytest.raises(ValueError, match="opaque"):
+        tracer_tiled.render_image_pallas(
+            tglass, tb, None, tlb, *cam, tcfg, W, H, True, 7, 16,
+            jb.tiles_x, jb.tiles_y)
 
 
 # ---------------------------------------------------------------------------

@@ -353,7 +353,10 @@ def test_transparent_render_system_matches_jax(monkeypatch):
 def test_transparent_routes_off_the_megakernel_raise(monkeypatch):
     """Where the JAX renderer sends a transparent scene to its exact tracer
     (render.py:435-445), past the megakernel's cylinder limits or without a
-    live sphere, the port raises naming ROADMAP A6."""
+    live sphere, the port takes its exact tracer (ROADMAP A6), in float64:
+    at most 2 pixels of the JAX renderer's frame (``backend="cpu"``, which
+    takes the exact tracer there too) off by more than one level (measured
+    0, 0 and 0)."""
     pos, colors, radii, edges, bcol, box = _alpha_bond_scene()
     opaque = colors.copy()
     opaque[:, 3] = 1.0
@@ -362,16 +365,21 @@ def test_transparent_routes_off_the_megakernel_raise(monkeypatch):
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 8)
     assert ren.render(pos, opaque, radii, **kw).shape == (32, 32, 4)
     assert ren._route_name == "pallas"
-    with pytest.raises(NotImplementedError, match="A6"):
-        ren.render(pos, colors, radii, **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ren.render(pos, opaque, radii, bond_colors=bcol, **kw)
+    # AA off on both sides keeps the JAX tracer's time down
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False,
+                                        antialiasing=False)
+    jren = mdapy_tpu.TachyonRender(backend="cpu", ao=False, antialiasing=False)
+    for c, extra in ((colors, {}), (opaque, dict(bond_colors=bcol))):
+        img = ren.render(pos, c, radii, **extra, **kw)
+        assert ren._route_name == "exact" and ren._scene[6]
+        _levels(img, jren.render(pos, c, radii, **extra, **kw), 2)
     monkeypatch.setattr(trender, "OTHER_TILE_MAX", 512)
     none = (np.zeros((0, 3)), np.zeros((0, 4), np.float32),
             np.zeros(0, np.float32))
     cam = mdapy_tpu_torch.preset_camera("perspective", pos, max_radius=0.9)
     assert ren.render(*none, camera=cam, **kw).shape == (32, 32, 4)
     assert ren._route_name == "tiled"
-    with pytest.raises(NotImplementedError, match="A6"):
-        ren.render(*none, camera=cam, box_edges=box,
-                   box_color=(1.0, 1.0, 1.0, 0.5), **kw)
+    glass = dict(camera=cam, box_edges=box, box_color=(1.0, 1.0, 1.0, 0.5))
+    img = ren.render(*none, **glass, **kw)
+    assert ren._route_name == "exact"
+    _levels(img, jren.render(*none, **glass, **kw), 2)
