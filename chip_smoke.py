@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port's render main path on one card.
+"""Smoke run of the PyTorch / CUDA port's main paths on one card: the
+renderer, the neighbor engine and the potentials.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -153,8 +154,36 @@ A6g. BASELINE config 4: config 2's 432 atoms through ``scene_from_arrays``
    loss and every gradient finite and not all zero, and each gradient's
    cosine against the CPU's float64 one at least 0.99; ms and peak.
 
+The neighbor engine and the potentials' force path, float64, after the
+render phases (tables and model files under ``chiprun_out/smoke``):
+
+N1. ``neighbor_search_device`` on 1,000,188 atoms of FCC Cu (a 3.615 A,
+    63^3 cells, as ``bench.py:246``) at rc 5 A: warm median of 5, every
+    count 42 (12 + 6 + 24 within 5 A), the cell list, the candidate gather
+    with its distances and the top-k apart (CUDA events), peak, launches
+    (``torch.profiler``); ``neighbor_search`` (sorted, to the host) and
+    ``knn_search(k=12)`` on the same crystal; the card against the port's
+    CPU on a seeded, rattled, triclinic 10,192-atom box (equal sets per
+    row, distances within 1e-12 A).
+E1. ``EAM.calculate`` (tables from the port's ``EAMGenerator(["Cu"])``) on
+    256,000 atoms of perfect FCC Cu (40^3 cells, as ``bench.py:125``): warm
+    median of 5, equal per-atom energies (std < 1e-10 eV) and forces below
+    1e-10 eV/A, the neighbor build and the two passes apart, peak,
+    launches; the card against the CPU on a rattled 4,000-atom Cu-Ni
+    alloy within 1e-9.
+F1. FIRE on E1's crystal rattled by a seeded 0.05 A: 10 steps on positions,
+    then 10 with ``optimize_cell=True``, energy and max |F| per step, ms per
+    step; each run lowers the energy.
+P1. ``NEP.calculate`` with a seeded NEP4 + ZBL file for Cu and Ni at
+    GPUMD's ``nep.in`` defaults (``tests/_nep_file.py``) on 256,000 atoms:
+    warm median of 3, the descriptor call, peak, launches; the card against
+    the CPU on 2,048 atoms within 1e-8 (energies, forces, virials, stress,
+    descriptors).
+Each timed call prints its bound: the larger of its float64 operations at
+the H100's float64 peak and its bytes at the HBM rate.
+
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
-6 and T2.  The
+6, T2, N1, E1, F1 and P1.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -1174,6 +1203,452 @@ def tile_cases(tile_kernels, dev, card: str) -> dict:
     return errs
 
 
+# ---- the neighbor engine and the potentials' force path (float64) ------
+
+PEAK_FP64 = 34e12     # H100 SXM, float64 outside the tensor cores
+# float64 operations of one candidate test of the neighbor build: the
+# displacement (3), to fractional (15), the minimum image (9), back (15),
+# the squared distance (5), the cutoff (1); rounded
+OPS_NEIGHBOR_TEST = 50
+# float64 operations of one EAM pair: pass 1 (the minimum image 45, the root,
+# three spline rows of 15, phi and the staged factors 15) and pass 2 (the
+# factor 4, force and virial sums 24); rounded
+OPS_EAM_PAIR = 130
+# float64 operations of one NEP pair, forward: radial (the cutoff, 9
+# Chebyshev terms, the per-type sums) and, within the angular cutoff, its
+# basis, the type mixing of 5 x 9 coefficients and 5 channels' 24
+# accumulators; the backward pass counted as twice the forward; rounded
+OPS_NEP_RADIAL_PAIR = 80
+OPS_NEP_ANGULAR_PAIR = 490
+NEIGHBOR_CELLS = 63   # 1,000,188 atoms, as bench.py:246
+POTENTIAL_CELLS = 40  # 256,000 atoms, as bench.py:125
+TOL_NEIGHBOR_DIST = 1e-12
+TOL_EAM = 1e-9
+TOL_NEP = 1e-8
+TOL_PERFECT = 1e-10
+
+
+def f64_bound(ops: float, nbytes: float):
+    """Least time (ms) for ``ops`` float64 operations and ``nbytes`` of HBM
+    traffic, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def median_ms(fn, reps: int):
+    """Median host ms of ``reps`` calls of ``fn``, each bracketed by
+    ``torch.cuda.synchronize()``, after one warm-up call; and the last
+    result."""
+    out, _ = sync_time(fn)
+    times = []
+    for _ in range(reps):
+        out, t = sync_time(fn)
+        times.append(t * 1e3)
+    return float(np.median(times)), out
+
+
+def peak_of(fn):
+    """Peak device bytes allocated during one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def profile_call(fn, top: int = 6):
+    """One call of ``fn`` under ``torch.profiler``: its device activities
+    (kernel launches and copies), their summed device ms, and the ``top``
+    kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
+    busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-3
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"launches": len(kern), "copies": len(dev) - len(kern),
+            "device_ms": busy, "top": [(k[:70], round(v, 3)) for k, v in tops]}
+
+
+def print_call(tag: str, what: str, ms: float, prof: dict, bound_ms: float,
+               by: str, peak: int, card: str) -> dict:
+    share = bound_ms / ms * 100
+    print(f"  {tag} {what}: {ms:.3f} ms (median), {prof['launches']} kernel "
+          f"launches + {prof['copies']} copies, device busy "
+          f"{prof['device_ms']:.3f} ms ({prof['device_ms'] / ms * 100:.1f} % of "
+          f"the call); bound {bound_ms:.4f} ms by {by}, share {share:.3f} %; "
+          f"peak {peak} B; {card}")
+    print(f"    top kernels (ms): {prof['top']}")
+    return {"ms": ms, "launches": prof["launches"], "copies": prof["copies"],
+            "device_ms": prof["device_ms"], "bound_ms": bound_ms,
+            "bound_by": by, "share": share, "peak": peak}
+
+
+def same_again(run, pot, tag: str) -> None:
+    """Run the force call once more: energies, forces and virials must be
+    the last call's bit for bit (row sums, no atomics)."""
+    before = {k: pot.results[k].clone() for k in ("energies", "forces", "virials")}
+    run()
+    if not all(torch.equal(before[k], pot.results[k]) for k in before):
+        fail(f"{tag} a second force call differs from the first")
+    print(f"  {tag} a second call repeats energies, forces and virials bit for bit")
+
+
+def fcc_system(n_cells: int, a: float = 3.615, rattle: float = 0.0, seed=0,
+               ni_share: float = 0.0):
+    """(positions, cubic periodic Box, elements) of n_cells^3 FCC cells of Cu,
+    a seeded share of the atoms Ni, rattled by normal(0, ``rattle``) A."""
+    from mdapy_tpu_torch.core.box import Box
+
+    pos = fcc_block(n_cells)[0]
+    rng = np.random.default_rng(seed)
+    if rattle:
+        pos = pos + rng.normal(0.0, rattle, pos.shape)
+    elems = np.where(rng.random(len(pos)) < ni_share, "Ni", "Cu").astype(object)
+    return pos, Box(np.eye(3) * n_cells * a), elems
+
+
+def rows_by_index(verlet, dist, cnt):
+    """Each row's first ``cnt`` (index, distance) pairs in index order, as
+    two padded arrays (-1 / 0 beyond the count)."""
+    verlet, dist = np.asarray(verlet), np.asarray(dist)
+    live = np.arange(verlet.shape[1])[None] < np.asarray(cnt)[:, None]
+    key = np.where(live, verlet, np.iinfo(np.int32).max)
+    order = np.argsort(key, axis=1, kind="stable")
+    return (np.where(live, np.take_along_axis(key, order, 1), -1),
+            np.where(live, np.take_along_axis(dist, order, 1), 0.0))
+
+
+def neighbor_phase(card: str) -> dict:
+    """[N1] The neighbor engine on 1,000,188 atoms of FCC Cu at rc 5 A."""
+    from mdapy_tpu_torch.core.box import Box
+    from mdapy_tpu_torch.neighbor import cell_list as cl
+    from mdapy_tpu_torch.neighbor.knn import knn_search
+    from mdapy_tpu_torch.neighbor.neighbor import (
+        CellFrame, neighbor_search, neighbor_search_device)
+
+    rc = 5.0
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS)
+    n = len(pos)
+    run = lambda: neighbor_search_device(pos, box, rc)  # noqa: E731
+    ms, (pos_d, verlet, cnt, _) = median_ms(run, 5)
+    if int(cnt.min()) != 42 or int(cnt.max()) != 42:
+        fail(f"[N1] neighbor counts {int(cnt.min())}-{int(cnt.max())}, not 42 "
+             "for every atom (12 + 6 + 24 within 5 A)")
+    cap = verlet.shape[1]
+    # the parts apart, on the same cell list: CUDA events
+    frame = CellFrame(pos, box, rc, pos_d.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    cells = frame.occupancy()
+    ev[1].record()
+    M = int(cells[4])
+    order, _, start, count, _ = cells
+    chunk = cl.query_chunk(27 * M)
+    cand_ms = topk_ms = 0.0
+    for s in range(0, n, chunk):
+        e3 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e3[0].record()
+        c, ok, d2 = cl.candidate_distances(
+            frame.pos, frame.pos[s:s + chunk], s, frame.matrix, frame.inv,
+            frame.origin, frame.boundary, rc, frame.ncells, order, start,
+            count, M)
+        e3[1].record()
+        cl.select_nearest(c, ok, d2, cap)
+        e3[2].record()
+        e3[2].synchronize()
+        cand_ms += e3[0].elapsed_time(e3[1])
+        topk_ms += e3[1].elapsed_time(e3[2])
+        del c, ok, d2
+    cell_ms = ev[0].elapsed_time(ev[1])
+    # candidates tested: each atom against every atom of its 27 cells
+    cxyz = torch.stack(torch.meshgrid(
+        *(torch.arange(k, device=pos_d.device) for k in frame.ncells),
+        indexing="ij"),
+        -1).reshape(-1, 3)
+    st, st_ok = cl._stencil_cells(cxyz, frame.ncells, frame.boundary)
+    per_cell = torch.where(st_ok, count[st], 0).sum(1)
+    tests = int((count * per_cell).sum())
+    peak = peak_of(run)
+    prof = profile_call(run)
+    nbytes = n * 24 + n * cap * 4 + n * 4
+    b_ms, by = f64_bound(tests * OPS_NEIGHBOR_TEST, nbytes)
+    print(f"[N1] {card}: neighbor_search_device, {n} atoms of FCC Cu "
+          f"(a 3.615 A, {NEIGHBOR_CELLS}^3 cells), rc {rc} A, float64: every "
+          f"count 42; cells {frame.ncells}, M {M}, capacity {cap}, chunks of "
+          f"{chunk} rows; {tests} candidate tests")
+    print(f"  parts (CUDA events, one build): cell list {cell_ms:.3f} ms, "
+          f"candidate gather + distances {cand_ms:.3f} ms, top-k "
+          f"{topk_ms:.3f} ms")
+    out = {"device": print_call("[N1]", "neighbor_search_device", ms, prof,
+                                b_ms, by, peak, card),
+           "cell_ms": cell_ms, "cand_ms": cand_ms, "topk_ms": topk_ms,
+           "tests": tests, "M": M, "cap": cap}
+    del pos_d, verlet, cnt, frame, cells, order, start, count
+    torch.cuda.empty_cache()
+
+    host = lambda: neighbor_search(pos, box, rc)  # noqa: E731
+    ms, (v_h, d_h, c_h) = median_ms(host, 3)
+    if not (c_h == 42).all():
+        fail("[N1] neighbor_search: a count is not 42")
+    nb_h = nbytes + n * v_h.shape[1] * 8
+    b_ms, by = f64_bound(tests * OPS_NEIGHBOR_TEST, nb_h)
+    out["host"] = print_call("[N1]", "neighbor_search (sorted, to the host)",
+                             ms, profile_call(host), b_ms, by, peak_of(host), card)
+    del v_h, d_h, c_h
+    knn = lambda: knn_search(pos, box, 12)  # noqa: E731
+    ms, (k_i, k_d) = median_ms(knn, 3)
+    if k_i.shape != (n, 12) or abs(float(k_d.max()) - 3.615 / 2**0.5) > 1e-9:
+        fail("[N1] knn_search(k=12) is not the 12 nearest at a / sqrt(2)")
+    out["knn"] = print_call("[N1]", "knn_search(k=12)", ms, profile_call(knn),
+                            *f64_bound(0, n * 24 + n * 12 * 12), peak_of(knn),
+                            card)
+    del k_i, k_d
+    torch.cuda.empty_cache()
+
+    # the card against the port's CPU: a seeded, rattled, triclinic box
+    rng = np.random.default_rng(9)
+    cells = np.mgrid[0:14, 0:14, 0:13].reshape(3, -1).T
+    frac = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
+    lat = ((frac[None] + cells[:, None]).reshape(-1, 3)
+           / np.array([14.0, 14.0, 13.0]))
+    m = np.array([[14 * 3.615, 0, 0], [6.0, 14 * 3.615, 0],
+                  [-4.0, 3.0, 13 * 3.615]])
+    tpos = lat @ m + rng.normal(0.0, 0.05, (len(lat), 3))
+    tbox = Box(m)
+    vc, dc, cc = neighbor_search(tpos, tbox, rc)
+    vp, dp, cp = neighbor_search(tpos, tbox, rc, device="cpu")
+    if not np.array_equal(cc, cp):
+        fail("[N1] card and CPU neighbor counts differ")
+    (ic, dc2), (ip, dp2) = rows_by_index(vc, dc, cc), rows_by_index(vp, dp, cp)
+    if not np.array_equal(ic, ip):
+        fail("[N1] card and CPU neighbor sets differ")
+    err = float(np.abs(dc2 - dp2).max())
+    print(f"  card against the CPU, {len(tpos)} rattled atoms in a triclinic "
+          f"cell: counts and sets equal, max |distance diff| {err:.3e} A")
+    if err > TOL_NEIGHBOR_DIST:
+        fail(f"[N1] distances differ by {err} A")
+    out["card_cpu_err"] = err
+    return out
+
+
+def eam_phase(card: str, outdir: Path) -> dict:
+    """[E1] The EAM force call on 256,000 atoms of FCC Cu."""
+    from _torch_system import StandInSystem
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_search_device
+    from mdapy_tpu_torch.potentials import eam as team
+
+    cu = str(outdir / "Cu.eam.alloy")
+    team.EAMGenerator(["Cu"], output_filename=cu)
+    pot = team.EAM(cu)
+    pos, box, elems = fcc_system(POTENTIAL_CELLS)
+    system = StandInSystem(pos, box, elems)
+    run = lambda: pot.calculate(system)  # noqa: E731
+    ms, _ = median_ms(run, 5)
+    e = pot.results["energies"]
+    f = pot.results["forces"]
+    same_again(run, pot, "[E1]")
+    e_std, f_max = float(e.std()), float(f.abs().max())
+    print(f"[E1] {card}: EAM (the port's EAMGenerator(['Cu']), rc "
+          f"{pot.rc:.4f} A) on {len(pos)} atoms of perfect FCC Cu, float64: "
+          f"per-atom energy {float(e.mean()):.6f} eV, std {e_std:.3e} eV, "
+          f"max |F| {f_max:.3e} eV/A")
+    if not (e_std < TOL_PERFECT and f_max < TOL_PERFECT):
+        fail("[E1] a perfect crystal's energies differ or its forces are not 0")
+    nb_ms, (pos_d, verlet, cnt, _) = median_ms(
+        lambda: neighbor_search_device(pos, box, pot.rc), 5)
+    types = torch.zeros(len(pos), dtype=torch.int64, device=pos_d.device)
+    tabs = pot._tables()
+    matrix, inv, bnd = (torch.tensor(a, dtype=torch.float64, device=pos_d.device)
+                        for a in (box.matrix, box.inverse_box, box.boundary))
+    pack = torch.cat([pos_d, types[:, None].double()], 1)
+    n, M = verlet.shape
+    block = team.eam_block(n, M)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    rho = torch.empty(n, dtype=torch.float64, device=pos_d.device)
+    staged = []
+    for s in range(0, n, block):
+        rho[s:s + block], _, stg = team.eam_pass1(
+            pack, pack[s:s + block], verlet[s:s + block], matrix, inv, bnd,
+            tabs[0], tabs[1], pot.dr, pot.rc, pot.nr, 1)
+        staged.append(stg)
+    ev[1].record()
+    _, dF = team.eam_embed(rho, types, tabs[2], pot.drho, pot.nrho)
+    ev[2].record()
+    for i, s in enumerate(range(0, n, block)):
+        team.eam_pass2(verlet[s:s + block], dF, dF[s:s + block], staged[i])
+    ev[3].record()
+    ev[3].synchronize()
+    p1, emb, p2 = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    pairs = int(cnt.sum())
+    del staged, pack, rho, dF
+    peak = peak_of(run)
+    nbytes = 2 * n * M * 4 + pairs * (32 + 8) + n * (8 + 24 + 72)
+    b_ms, by = f64_bound(pairs * OPS_EAM_PAIR, nbytes)
+    print(f"  neighbor build {nb_ms:.3f} ms (median of 5), capacity {M}, "
+          f"{pairs} pairs; pass 1 {p1:.3f} ms, embedding {emb:.3f} ms, pass 2 "
+          f"{p2:.3f} ms (CUDA events, blocks of {block} rows)")
+    out = print_call("[E1]", "EAM.calculate", ms, profile_call(run), b_ms, by,
+                     peak, card)
+    out.update(neighbor_ms=nb_ms, pass1_ms=p1, embed_ms=emb, pass2_ms=p2,
+               pairs=pairs, passes_bound_ms=f64_bound(
+                   pairs * OPS_EAM_PAIR, nbytes)[0])
+    del pos_d, verlet, cnt, pot, system
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a seeded, rattled Cu-Ni alloy
+    cuni = str(outdir / "CuNi.eam.alloy")
+    team.EAMGenerator(["Cu", "Ni"], output_filename=cuni)
+    pos, box, elems = fcc_system(10, rattle=0.05, seed=4, ni_share=0.3)
+    errs = []
+    res = []
+    for device in ("cuda", "cpu"):
+        s = StandInSystem(pos, box, elems)
+        s.calc = team.EAM(cuni, device=device)
+        res.append((s.get_energies(), s.get_force(), s.get_virials(),
+                    s.get_stress()))
+    errs = [float(np.abs(a - b).max()) for a, b in zip(*res)]
+    print(f"  card against the CPU, {len(pos)} rattled Cu-Ni atoms: max |diff| "
+          f"energies {errs[0]:.3e}, forces {errs[1]:.3e}, virials "
+          f"{errs[2]:.3e}, stress {errs[3]:.3e}")
+    if max(errs) > TOL_EAM:
+        fail(f"[E1] the card and the CPU differ by {max(errs)}")
+    out["card_cpu_err"] = max(errs)
+    return out
+
+
+def fire_phase(card: str, outdir: Path) -> dict:
+    """[F1] FIRE on the [E1] crystal rattled by a seeded 0.05 A."""
+    from _torch_system import StandInSystem
+    from mdapy_tpu_torch.potentials.eam import EAM
+    from mdapy_tpu_torch.potentials.minimizer import FIRE
+
+    pos, box, elems = fcc_system(POTENTIAL_CELLS, rattle=0.05, seed=5)
+
+    class Timed(StandInSystem):
+        stamps = []
+
+        def update_pos(self, p):
+            super().update_pos(p)
+            self.stamps.append(time.perf_counter())
+
+    system = Timed(pos, box, elems)
+    system.calc = EAM(str(outdir / "Cu.eam.alloy"))
+    out = {}
+    for label, kw in (("positions", {}), ("positions + cell",
+                                          {"optimize_cell": True})):
+        e0 = system.get_energy()
+        Timed.stamps = [time.perf_counter()]
+        fire = FIRE(system, **kw)
+        print(f"[F1] {card}: FIRE, {label}, 10 steps on {len(pos)} atoms "
+              f"(EAM on the card):")
+        fire.run(10, fmax=1e-12, show_process=True)
+        torch.cuda.synchronize()
+        steps = np.diff(Timed.stamps) * 1e3
+        e1 = system.get_energy()
+        print(f"  energy {e0:.6f} -> {e1:.6f} eV; ms per step: "
+              f"{[round(float(t), 1) for t in steps]}, median "
+              f"{float(np.median(steps)):.1f}")
+        if not e1 < e0:
+            fail(f"[F1] FIRE ({label}) did not lower the energy")
+        out[label] = {"e0": e0, "e1": e1, "ms_per_step": float(np.median(steps))}
+    return out
+
+
+def nep_phase(card: str, outdir: Path) -> dict:
+    """[P1] A NEP4 + ZBL force call on 256,000 atoms of Cu-Ni."""
+    from _nep_file import write_nep
+    from _torch_system import StandInSystem
+    from mdapy_tpu_torch.potentials.nep import NEP, gather_disp
+
+    path = write_nep(outdir / "CuNi_nep4_zbl.txt", version=4,
+                     elements=("Cu", "Ni"), zbl=(1.0, 2.0), seed=7)
+    pot = NEP(path)
+    pos, box, elems = fcc_system(POTENTIAL_CELLS, rattle=0.05, seed=6,
+                                 ni_share=0.3)
+    system = StandInSystem(pos, box, elems)
+    run = lambda: pot.calculate(system)  # noqa: E731
+    ms, _ = median_ms(run, 3)
+    e, f = pot.results["energies"], pot.results["forces"]
+    same_again(run, pot, "[P1]")
+    if not (torch.isfinite(e).all() and torch.isfinite(f).all()):
+        fail("[P1] energies or forces not finite")
+    desc = lambda: pot.get_descriptors(system)  # noqa: E731
+    d_ms, q = median_ms(desc, 3)
+    if q.shape != (len(pos), pot.dim) or not np.isfinite(q).all():
+        fail("[P1] descriptors of the wrong shape or not finite")
+    # pairs within each cutoff: what the descriptor's work needs
+    pos_d, box_c, types, verlet, _ = pot._prepare_device(system)
+    dispc, _, ok = gather_disp(pos_d, torch.as_tensor(types, device=pos_d.device),
+                               verlet, box_c)
+    d = torch.sqrt(sum(c * c for c in dispc))
+    n_r = int((ok & (d < pot.rc_radial)).sum())
+    n_a = int((ok & (d < pot.rc_angular)).sum())
+    n, M = verlet.shape
+    del dispc, d, ok, pos_d, verlet
+    ops_fwd = n_r * OPS_NEP_RADIAL_PAIR + n_a * OPS_NEP_ANGULAR_PAIR
+    ann = n * 2 * pot.num_neurons * pot.dim
+    nbytes = n * 32 + n * M * 4 + n * 13 * 8
+    b_ms, by = f64_bound(3 * (ops_fwd + ann), nbytes)
+    db_ms, dby = f64_bound(ops_fwd, nbytes)
+    print(f"[P1] {card}: NEP4 + ZBL (Cu, Ni; cutoff 8 4, n_max 4 4, "
+          f"basis_size 8 8, l_max 4 2 0, 30 neurons, dim {pot.dim}) on {n} "
+          f"rattled atoms, 30 % Ni, float64: capacity {M}, {n_r} radial and "
+          f"{n_a} angular pairs; per-atom energy {float(e.mean()):.6f} eV, "
+          f"max |F| {float(f.abs().max()):.4f} eV/A")
+    out = {"force": print_call("[P1]", "NEP.calculate", ms, profile_call(run),
+                               b_ms, by, peak_of(run), card),
+           "descriptor": print_call("[P1]", "NEP.get_descriptors", d_ms,
+                                    profile_call(desc), db_ms, dby,
+                                    peak_of(desc), card)}
+    del pot, system
+    torch.cuda.empty_cache()
+
+    # the card against the CPU on 2,048 atoms
+    pos, box, elems = fcc_system(8, rattle=0.1, seed=8, ni_share=0.3)
+    res = []
+    for device in ("cuda", "cpu"):
+        s = StandInSystem(pos, box, elems)
+        s.calc = NEP(path, device=device)
+        res.append((s.get_energies(), s.get_force(), s.get_virials(),
+                    s.get_stress(), s.calc.get_descriptors(s)))
+    errs = [float(np.abs(a - b).max()) for a, b in zip(*res)]
+    print(f"  card against the CPU, {len(pos)} rattled Cu-Ni atoms: max |diff| "
+          f"energies {errs[0]:.3e}, forces {errs[1]:.3e}, virials "
+          f"{errs[2]:.3e}, stress {errs[3]:.3e}, descriptors {errs[4]:.3e}")
+    if max(errs) > TOL_NEP:
+        fail(f"[P1] the card and the CPU differ by {max(errs)}")
+    out["card_cpu_err"] = max(errs)
+    return out
+
+
+def potential_phases(card: str) -> dict:
+    """[N1], [E1], [F1] and [P1], their files under chiprun_out/smoke."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # _torch_system, _nep_file
+    outdir = root / "chiprun_out" / "smoke"
+    outdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = {"N1": neighbor_phase(card)}
+    torch.cuda.empty_cache()
+    out["E1"] = eam_phase(card, outdir)
+    out["F1"] = fire_phase(card, outdir)
+    torch.cuda.empty_cache()
+    out["P1"] = nep_phase(card, outdir)
+    torch.cuda.empty_cache()
+    print(f"[N1-P1] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -2148,6 +2623,9 @@ def main() -> None:
     peel_errs.append(t2["err"])
     del ren, args, chunk_data, lights, frame_bins, img, primary_only
     torch.cuda.empty_cache()
+
+    potentials = potential_phases(card)
+    print(json.dumps({"potentials": potentials}))
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",

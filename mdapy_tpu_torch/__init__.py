@@ -1,12 +1,21 @@
 """mdapy_tpu_torch — the port of ``mdapy_tpu`` to PyTorch and CUDA.
 
 The port goes slice by slice beside the JAX package, which stays the
-reference it is tested against.  The slice ported so far is the renderer's
-main path (``TachyonRender.render`` and ``render_system``): opaque spheres,
-bond and box-edge cylinders, AA, one shadowed directional light and fast
-ambient occlusion, with the frame rendered by a hand CUDA kernel for the
-H100 (``csrc/mega_render.cu``).  This package imports torch and never jax,
-nor anything of the JAX package.
+reference it is tested against.  Ported so far, for one card:
+
+* the renderer (``TachyonRender.render`` and ``render_system``) on every
+  route the JAX renderer takes, its frames drawn by hand CUDA kernels for
+  the H100 (``csrc/mega_render.cu``, ``csrc/tile_kernels.cu``) or by the
+  exact tracer in torch ops;
+* the neighbor engine (``Box``, ``Neighbor``, ``NearestNeighbor``): cell
+  lists, Verlet lists and k-nearest neighbors in torch ops;
+* the potentials' force path: ``EAM`` (with ``EAMAverage`` and
+  ``EAMGenerator``), ``NEP`` (NEP3/4/5, with ZBL) and the ``FIRE``
+  minimizer, in float64.
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``, or ``backend="cpu"`` for the renderer).  This package
+imports torch and never jax, nor anything of the JAX package.
 
 Imports are lazy, in the style of ``mdapy_tpu/__init__.py``.
 """
@@ -19,6 +28,14 @@ _LAZY = {
     "CameraParams": (".render.camera", "CameraParams"),
     "preset_camera": (".render.camera", "preset_camera"),
     "auto_camera": (".render.camera", "auto_camera"),
+    "Box": (".core.box", "Box"),
+    "Neighbor": (".neighbor.neighbor", "Neighbor"),
+    "NearestNeighbor": (".neighbor.knn", "NearestNeighbor"),
+    "EAM": (".potentials.eam", "EAM"),
+    "EAMAverage": (".potentials.eam", "EAMAverage"),
+    "EAMGenerator": (".potentials.eam", "EAMGenerator"),
+    "NEP": (".potentials.nep", "NEP"),
+    "FIRE": (".potentials.minimizer", "FIRE"),
 }
 
 __all__ = sorted(_LAZY)

@@ -393,6 +393,22 @@ def test_port_imports_no_jax():
         "width=128, height=96)\n"
         "assert r._route_name == 'pallas' and heavy.shape == (96, 128, 4)\n"
         "assert np.abs(heavy.astype(int) - img).mean() < 2 and heavy.std() > 1\n"
+        "import os, tempfile\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from _torch_system import StandInSystem\n"
+        "nb = m.Neighbor(pos, m.Box(np.eye(3) * 2 * a), 3.0, device='cpu').compute()\n"
+        "assert (nb.neighbor_number == 12).all()\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "g = m.EAMGenerator(['Cu'], output_filename=os.path.join(tmp, 'Cu.eam.alloy'))\n"
+        "rng = np.random.default_rng(0)\n"
+        "st = StandInSystem(np.tile(pos, (8, 1)) + np.repeat(np.mgrid[0:2, 0:2, "
+        "0:2].reshape(3, -1).T * 2 * a, 32, axis=0) + rng.normal(0, .05, (256, 3)), "
+        "np.eye(3) * 4 * a, 'Cu')\n"
+        "st.calc = m.EAM(g.output_filename, device='cpu')\n"
+        "e0 = st.get_energy()\n"
+        "assert st.get_force().shape == (256, 3)\n"
+        "m.FIRE(st).run(2)\n"
+        "assert st.get_energy() < e0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
