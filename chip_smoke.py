@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port's main paths on one card: the
-renderer, the neighbor engine and the potentials.
+renderer, the neighbor engine, the potentials and the structure analyses.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -182,8 +182,37 @@ P1. ``NEP.calculate`` with a seeded NEP4 + ZBL file for Cu and Ni at
 Each timed call prints its bound: the larger of its float64 operations at
 the H100's float64 peak and its bytes at the HBM rate.
 
+The structure analyses, float64, after [P1] (each call: the warm ms,
+median of 3 by the host clock bracketed by ``torch.cuda.synchronize()``,
+each repeat equal bit for bit to a first call; launches and the device's
+busy share from ``torch.profiler``; the peak; the float64 bound of the
+analysis's own arithmetic; the card against the CPU on about 4,000 atoms of
+the same structure, rattled, labels and counts equal and floats within
+1e-12):
+
+S1. The classifiers on N1's block, timed on it rattled by 0.05 A (seed
+    21): ``CentroSymmetryParameter(N=12)``, ``CommonNeighborAnalysis``
+    adaptive and at rc 3.0, ``AcklandJonesAnalysis``,
+    ``CommonNeighborParameter`` at rc 3.0 (its list built beforehand) and
+    ``SteinhardtBondOrientation`` (l 4 and 6, nnn 12, w-hat, averaged,
+    solid-liquid).  On the perfect block every atom must be FCC, CSP and
+    CNP below 1e-20, q4 and q6 equal at every atom and every atom solid.
+S2. 1,000,000 atoms of perfect cubic diamond (50^3 cells):
+    ``IdentifyDiamondStructure`` at a 5.431 A, every atom cubic diamond;
+    ``ChillPlus`` on the same lattice at a 6.35 A (the O sublattice of
+    cubic ice), rc 3.5, every atom cubic ice.
+S3. N1's block rattled: ``RadialDistributionFunction`` (rc 5, nbin 200,
+    the Verlet route), ``AngularDistributionFunction`` (Cu-Cu-Cu, 0-3 A,
+    nbin 180), ``BondAnalysis`` (rc 3, nbin 180), ``StructureEntropy`` (rc
+    5, sigma 0.2, with and without the local density), and the RDF's
+    streaming route, which the auto rule picks on 12^3 cells at rc 15.
+S4. ``ClusterAnalysis`` at rc 3.0 with 30 % of N1's atoms removed (seed
+    26) and the rest rattled; ``AtomicStrain`` at rc 5 against the block
+    under a 1 % shear and a 0.05 A rattle; ``WignerSeitzAnalysis`` with 1 %
+    of the atoms moved onto octahedral sites.
+
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
-6, T2, N1, E1, F1 and P1.  The
+6, T2, N1, E1, F1, P1 and S1-S4.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -1649,6 +1678,438 @@ def potential_phases(card: str) -> dict:
     return out
 
 
+# ---- the structure analyses (ROADMAP A10), float64 ----------------------
+
+DIAMOND_CELLS = 50    # 1,000,000 atoms of diamond
+CUT_CELLS = 10        # the card against the CPU: 4,000 FCC atoms (diamond 8)
+TOL_CARD_CPU = 1e-12
+# float64 operations of the analyses' own arithmetic, by the unit each
+# repeats (the neighbor build inside a call is not counted, so each bound
+# is below the least time of the whole call): one minimum-imaged
+# displacement (the difference 3, to fractional and back 30, the round and
+# shift 6, rounded up); one bond-pair test (a displacement and its squared
+# norm against the cutoff); one bond angle (a dot product, arccos, the
+# scale and the bin); one Gaussian of the entropy (difference, square,
+# scale, exp)
+OPS_DISP = 45
+OPS_PAIR = 50
+OPS_ANGLE = 30
+OPS_GAUSS = 25
+
+
+def diamond_positions(n_cells: int, a: float) -> np.ndarray:
+    """Cubic diamond, 8 * n_cells**3 atoms in a cube of n_cells * a."""
+    fcc = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    basis = np.vstack([fcc, fcc + 0.25])
+    cells = np.mgrid[0:n_cells, 0:n_cells, 0:n_cells].reshape(3, -1).T
+    return (basis[None] + cells[:, None]).reshape(-1, 3) * a
+
+
+def same_bits(a, b) -> bool:
+    return all(x.dtype == y.dtype and x.tobytes() == y.tobytes()
+               for x, y in zip(a, b))
+
+
+def analysis_call(tag: str, what: str, run, outputs, card: str, ops: float,
+                  nbytes: float) -> dict:
+    """``run()`` computes the analysis and returns it; ``outputs(obj)`` its
+    result arrays.  A warm-up call, 3 timed calls (the median; each must
+    repeat the warm-up's results bit for bit), then one call under
+    ``torch.profiler`` that also reads the peak."""
+    first = outputs(run())
+    times = []
+    for _ in range(3):
+        obj, t = sync_time(run)
+        times.append(t * 1e3)
+        if not same_bits(outputs(obj), first):
+            fail(f"{tag} {what}: a second call differs from the first")
+    del obj
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(run)
+    peak = torch.cuda.max_memory_allocated()
+    b_ms, by = f64_bound(ops, nbytes)
+    out = print_call(tag, what, float(np.median(times)), prof, b_ms, by, peak,
+                     card)
+    print(f"    {what}: every repeat equal bit for bit to the first call")
+    return out
+
+
+def card_against_cpu(tag: str, what: str, make, outputs) -> float:
+    """``make(device)`` on a cut of about 4,000 atoms, on the card and on
+    the CPU: integer results equal, floats within TOL_CARD_CPU (nan and inf
+    in the same places)."""
+    got, want = outputs(make("cuda")), outputs(make("cpu"))
+    err = 0.0
+    for x, y in zip(got, want):
+        if x.shape != y.shape:
+            fail(f"{tag} {what}: card {x.shape} against CPU {y.shape}")
+        if x.dtype.kind != "f":
+            if not np.array_equal(x, y):
+                fail(f"{tag} {what}: the card's labels or counts differ from "
+                     f"the CPU's in {int((x != y).sum())} places")
+            continue
+        if not np.array_equal(np.isfinite(x), np.isfinite(y)):
+            fail(f"{tag} {what}: the card and the CPU differ in finiteness")
+        fin = np.isfinite(x)
+        if fin.any():
+            err = max(err, float(np.abs(x[fin] - y[fin]).max()))
+    if err > TOL_CARD_CPU:
+        fail(f"{tag} {what}: the card and the CPU differ by {err}")
+    print(f"    card against the CPU ({what}, about 4,000 atoms): labels "
+          f"and counts equal, floats within {err:.3e}")
+    return err
+
+
+def classifier_phase(card: str) -> dict:
+    """[S1] The classifiers on N1's block, perfect and rattled."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_tensors
+
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS)
+    rat, _, _ = fcc_system(NEIGHBOR_CELLS, rattle=0.05, seed=21)
+    n = len(pos)
+    cut, cbox, _ = fcc_system(CUT_CELLS, rattle=0.05, seed=22)
+    out = {}
+    print(f"[S1] {card}: the classifiers on {n} atoms of FCC Cu (a 3.615 A, "
+          f"{NEIGHBOR_CELLS}^3 cells), rattled by 0.05 A (seed 21) when timed, "
+          "float64")
+
+    def fcc_everywhere(labels, what):
+        if not (labels == 1).all():
+            fail(f"[S1] {what}: {int((labels != 1).sum())} atoms of the "
+                 "perfect block are not FCC")
+
+    # CSP: 12 displacements and 66 pair sums (8 operations) an atom
+    csp = mt.CentroSymmetryParameter(pos, box, 12).compute().csp
+    if not csp.max() < 1e-20:
+        fail(f"[S1] CSP of the perfect block reaches {csp.max()}")
+    out["csp"] = analysis_call(
+        "[S1]", "CentroSymmetryParameter(N=12)",
+        lambda: mt.CentroSymmetryParameter(rat, box, 12).compute(),
+        lambda o: (o.csp,), card, n * (12 * OPS_DISP + 66 * 8),
+        n * (24 + 12 * 4 * 2 + 8))
+    print(f"    perfect block: CSP max {csp.max():.3e} (< 1e-20); rattled "
+          f"mean {float(np.mean(csp)):.3e}")
+    card_against_cpu("[S1]", "CSP", lambda d: mt.CentroSymmetryParameter(
+        cut, cbox, 12, device=d).compute(), lambda o: (o.csp,))
+
+    # adaptive CNA: 14 displacements, 12^2 + 14^2 bond-pair tests an atom
+    fcc_everywhere(mt.CommonNeighborAnalysis(pos, box).compute().cna,
+                   "adaptive CNA")
+    out["cna"] = analysis_call(
+        "[S1]", "CommonNeighborAnalysis (adaptive)",
+        lambda: mt.CommonNeighborAnalysis(rat, box).compute(),
+        lambda o: (o.cna,), card, n * (14 * OPS_DISP + 340 * OPS_PAIR),
+        n * (24 + 14 * 4 * 2 + 4))
+    card_against_cpu("[S1]", "adaptive CNA", lambda d: mt.CommonNeighborAnalysis(
+        cut, cbox, device=d).compute(), lambda o: (o.cna,))
+
+    # fixed CNA at rc 3: 14^2 bond-pair tests an atom (12 neighbors, 14
+    # columns)
+    fcc_everywhere(mt.CommonNeighborAnalysis(pos, box, rc=3.0).compute().cna,
+                   "fixed CNA")
+    out["cna_fixed"] = analysis_call(
+        "[S1]", "CommonNeighborAnalysis(rc=3.0)",
+        lambda: mt.CommonNeighborAnalysis(rat, box, rc=3.0).compute(),
+        lambda o: (o.cna,), card, n * 196 * OPS_PAIR,
+        n * (24 + 14 * 4 * 2 + 4))
+    card_against_cpu("[S1]", "fixed CNA", lambda d: mt.CommonNeighborAnalysis(
+        cut, cbox, rc=3.0, device=d).compute(), lambda o: (o.cna,))
+
+    # Ackland-Jones: 14 displacements, 196 cosines (5) binned on 7 edges
+    fcc_everywhere(mt.AcklandJonesAnalysis(pos, box).compute().aja,
+                   "Ackland-Jones")
+    out["aja"] = analysis_call(
+        "[S1]", "AcklandJonesAnalysis",
+        lambda: mt.AcklandJonesAnalysis(rat, box).compute(),
+        lambda o: (o.aja,), card, n * (14 * OPS_DISP + 196 * 12),
+        n * (24 + 14 * 12 * 2 + 4))
+    card_against_cpu("[S1]", "Ackland-Jones", lambda d: mt.AcklandJonesAnalysis(
+        cut, cbox, device=d).compute(), lambda o: (o.aja,))
+
+    # CNP at rc 3 on a list built beforehand: M^2 (j, s) slots, two
+    # displacements each
+    lists = neighbor_tensors(rat, box, 3.0)
+    M = lists[0].shape[1]
+    cnp_p = mt.CommonNeighborParameter(
+        pos, box, 3.0, *neighbor_tensors(pos, box, 3.0)).compute().cnp
+    if not cnp_p.max() < 1e-20:
+        fail(f"[S1] CNP of the perfect block reaches {cnp_p.max()}")
+    out["cnp"] = analysis_call(
+        "[S1]", f"CommonNeighborParameter(rc=3.0), {M} columns",
+        lambda: mt.CommonNeighborParameter(rat, box, 3.0, *lists).compute(),
+        lambda o: (o.cnp,), card, n * M * M * (2 * OPS_DISP + 9),
+        n * (24 + M * 12 + 8))
+    del lists
+    card_against_cpu("[S1]", "CNP", lambda d: mt.CommonNeighborParameter(
+        cut, cbox, 3.0, *neighbor_tensors(cut, cbox, 3.0, device=d),
+        device=d).compute(), lambda o: (o.cnp,))
+
+    # Steinhardt q4, q6 (+ w-hat, averaged, solid-liquid): per bond and l a
+    # displacement, the Legendre recurrences (3 (l+1)^2) and the 2l+1 terms
+    # (10 each)
+    kw = dict(llist=(4, 6), nnn=12, wlhat=True, average=True,
+              identify_liquid=True)
+    st = mt.SteinhardtBondOrientation(pos, box, **kw).compute()
+    spread = float(np.ptp(st.qnarray, axis=0).max())
+    if spread > 1e-10 or not (st.solidliquid == 1).all():
+        fail(f"[S1] Steinhardt on the perfect block: spread {spread}, "
+             f"{int((st.solidliquid != 1).sum())} atoms not solid")
+    print(f"    perfect block: q4 {st.qnarray[0, 0]:.6f}, q6 "
+          f"{st.qnarray[0, 1]:.6f} at every atom (spread {spread:.1e}), every "
+          "atom solid")
+    per_bond = sum(OPS_DISP + 3 * (l + 1) ** 2 + 10 * (2 * l + 1)
+                   for l in (4, 6))
+    out["steinhardt"] = analysis_call(
+        "[S1]", "SteinhardtBondOrientation(l 4 6, nnn 12, wlhat, average, "
+        "identify_liquid)",
+        lambda: mt.SteinhardtBondOrientation(rat, box, **kw).compute(),
+        lambda o: (o.qnarray, o.solidliquid, o.nbond), card,
+        n * 12 * per_bond, n * (24 + 12 * 4 * 2 + 4 * 8 + 8))
+    card_against_cpu("[S1]", "Steinhardt", lambda d: mt.SteinhardtBondOrientation(
+        cut, cbox, device=d, **kw).compute(),
+        lambda o: (o.qnarray, o.solidliquid, o.nbond))
+    return out
+
+
+def diamond_phase(card: str) -> dict:
+    """[S2] Diamond and ice on 1,000,000 atoms of perfect cubic diamond."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.core.box import Box
+
+    out = {}
+    rng = np.random.default_rng(23)
+    for name, a in (("diamond", 5.431), ("ice", 6.35)):
+        pos = diamond_positions(DIAMOND_CELLS, a)
+        box = Box(np.eye(3) * DIAMOND_CELLS * a)
+        cut = diamond_positions(8, a)
+        cut = cut + rng.normal(0.0, 0.05, cut.shape)
+        cbox = Box(np.eye(3) * 8 * a)
+        n = len(pos)
+        if name == "diamond":
+            print(f"[S2] {card}: {n} atoms of perfect cubic diamond "
+                  f"({DIAMOND_CELLS}^3 cells), float64")
+            # 12 displacements and 12^2 bond-pair tests an atom
+            run = lambda: mt.IdentifyDiamondStructure(pos, box).compute()  # noqa: E731
+            out[name] = analysis_call(
+                "[S2]", "IdentifyDiamondStructure (a 5.431 A)", run,
+                lambda o: (o.ids,), card, n * (12 * OPS_DISP + 144 * OPS_PAIR),
+                n * (24 + 4 * 8 + 4))
+            labels, want = run().ids, 1
+            make = lambda d: mt.IdentifyDiamondStructure(  # noqa: E731
+                cut, cbox, device=d).compute()
+            outputs = lambda o: (o.ids,)  # noqa: E731
+        else:
+            # 4 bonds an atom: a displacement, Y_3m (3 * 16 + 7 * 10)
+            run = lambda: mt.ChillPlus(pos, box, 3.5).compute()  # noqa: E731
+            out[name] = analysis_call(
+                "[S2]", "ChillPlus (a 6.35 A, the O sublattice of cubic ice, "
+                "rc 3.5)", run, lambda o: (o.chill_plus,), card,
+                n * 4 * (OPS_DISP + 48 + 70 + 30), n * (24 + 16 * 12 + 4))
+            labels, want = run().chill_plus, 2
+            make = lambda d: mt.ChillPlus(cut, cbox, 3.5, device=d).compute()  # noqa: E731
+            outputs = lambda o: (o.chill_plus,)  # noqa: E731
+        if not (labels == want).all():
+            fail(f"[S2] {name}: {int((labels != want).sum())} atoms are not "
+                 f"label {want}")
+        print(f"    every atom label {want} ("
+              f"{'cubic diamond' if want == 1 else 'cubic ice'})")
+        card_against_cpu("[S2]", name, make, outputs)
+        del pos
+    return out
+
+
+def distribution_phase(card: str) -> dict:
+    """[S3] RDF, ADF, bonds and entropy on N1's block rattled."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_tensors
+
+    rat, box, _ = fcc_system(NEIGHBOR_CELLS, rattle=0.05, seed=21)
+    n = len(rat)
+    cut, cbox, _ = fcc_system(CUT_CELLS, rattle=0.05, seed=22)
+    out = {}
+    print(f"[S3] {card}: distributions on {n} atoms of FCC Cu rattled by "
+          "0.05 A, float64")
+
+    def counts_of(o):
+        return (o.g_total,) + tuple(o.g_partial[k] for k in sorted(o.g_partial))
+
+    run = lambda: mt.RadialDistributionFunction(rat, box, 5.0, 200).compute()  # noqa: E731
+    g = run()
+    print(f"    RDF (Verlet route): first peak at r {g.r[np.argmax(g.g_total)]:.4f} "
+          f"A, g {g.g_total.max():.4f}")
+    # the list's ~42 pairs an atom, each binned (a division and a compare)
+    out["rdf"] = analysis_call("[S3]", "RadialDistributionFunction(rc 5, nbin 200)",
+                               run, counts_of, card, n * 42 * 4,
+                               n * (24 + 42 * 12))
+    card_against_cpu("[S3]", "RDF", lambda d: mt.RadialDistributionFunction(
+        cut, cbox, 5.0, 200, device=d).compute(), counts_of)
+
+    rc_adf = {"1-1-1": [0.0, 3.0, 0.0, 3.0]}
+    ones = np.ones(n, int)
+    run = lambda: mt.AngularDistributionFunction(  # noqa: E731
+        rat, box, rc_adf, nbin=180, types=ones).compute()
+    out["adf"] = analysis_call(
+        "[S3]", "AngularDistributionFunction(Cu-Cu-Cu, 0-3 A, nbin 180)", run,
+        lambda o: (o.bond_angle_distribution,), card,
+        n * (12 * OPS_DISP + 66 * OPS_ANGLE), n * (24 + 12 * 12))
+    card_against_cpu("[S3]", "ADF", lambda d: mt.AngularDistributionFunction(
+        cut, cbox, rc_adf, nbin=180, types=np.ones(len(cut), int),
+        device=d).compute(), lambda o: (o.bond_angle_distribution,))
+
+    lists = neighbor_tensors(rat, box, 3.0)
+    M = lists[0].shape[1]
+    run = lambda: mt.BondAnalysis(rat, box, 3.0, 180, *lists).compute()  # noqa: E731
+    out["bonds"] = analysis_call(
+        "[S3]", f"BondAnalysis(rc 3, nbin 180), {M} columns", run,
+        lambda o: (o.bond_length_distribution, o.bond_angle_distribution),
+        card, n * (M * OPS_DISP + M * (M - 1) / 2 * OPS_ANGLE),
+        n * (24 + M * 12))
+    del lists
+    card_against_cpu("[S3]", "bonds", lambda d: mt.BondAnalysis(
+        cut, cbox, 3.0, 180, *neighbor_tensors(cut, cbox, 3.0, device=d),
+        device=d).compute(),
+        lambda o: (o.bond_length_distribution, o.bond_angle_distribution))
+
+    lists = neighbor_tensors(rat, box, 5.0)
+    M = lists[0].shape[1]
+    nbins = int(np.floor(5.0 / 0.2)) + 1
+    for local in (False, True):
+        run = lambda: mt.StructureEntropy(  # noqa: E731
+            rat, box, 5.0, 0.2, local, *lists).compute()
+        out[f"entropy_local_{local}"] = analysis_call(
+            "[S3]", f"StructureEntropy(rc 5, sigma 0.2, "
+            f"use_local_density={local}), {M} columns", run,
+            lambda o: (o.entropy,), card,
+            n * (M * nbins * OPS_GAUSS + nbins * 12), n * (M * 12 + 8))
+        card_against_cpu("[S3]", f"entropy (local density {local})",
+                         lambda d: mt.StructureEntropy(
+                             cut, cbox, 5.0, 0.2, local,
+                             *neighbor_tensors(cut, cbox, 5.0, device=d),
+                             device=d).compute(), lambda o: (o.entropy,))
+    del lists
+
+    # the streaming route: a 12^3-cell block, 43.4 A thick, at rc 15
+    small, sbox, _ = fcc_system(12, rattle=0.05, seed=24)
+    rdf = mt.RadialDistributionFunction(small, sbox, 15.0, 200)
+    if not rdf._auto_streaming():
+        fail("[S3] the auto rule did not pick the streaming route")
+    ns = len(small)
+    out["rdf_streaming"] = analysis_call(
+        "[S3]", f"RadialDistributionFunction streaming ({ns} atoms, rc 15)",
+        lambda: mt.RadialDistributionFunction(small, sbox, 15.0, 200).compute(),
+        counts_of, card, ns * ns * (OPS_DISP + 10), ns * 24)
+    card_against_cpu("[S3]", "RDF streaming (rc 12.5)",
+                     lambda d: mt.RadialDistributionFunction(
+                         cut, cbox, 12.5, 200, streaming=True,
+                         device=d).compute(), counts_of)
+    return out
+
+
+def graph_phase(card: str) -> dict:
+    """[S4] Clusters, atomic strain and Wigner-Seitz on N1's block."""
+    import mdapy_tpu_torch as mt
+    from _torch_system import StandInSystem
+
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS)
+    n = len(pos)
+    cut, cbox, _ = fcc_system(CUT_CELLS)
+    out = {}
+    rng = np.random.default_rng(25)
+    print(f"[S4] {card}: graphs and displacements on N1's block ({n} atoms), "
+          "float64")
+
+    def thinned(p, seed):
+        keep = np.random.default_rng(seed).random(len(p)) >= 0.3
+        q = p[keep]
+        return q + np.random.default_rng(seed + 1).normal(0.0, 0.05, q.shape)
+
+    kept = thinned(pos, 26)
+    run = lambda: mt.ClusterAnalysis(kept, box, 3.0).compute()  # noqa: E731
+    c = run()
+    print(f"    ClusterAnalysis: {len(kept)} atoms kept of {n} (seed 26), "
+          f"{c.cluster_number} clusters, the largest "
+          f"{int(np.bincount(c.particleClusters).max())} atoms")
+    out["cluster"] = analysis_call(
+        "[S4]", "ClusterAnalysis(rc 3.0), 30 % of the atoms removed", run,
+        lambda o: (o.particleClusters,), card, 0,
+        len(kept) * (24 + 12 * 12 + 4))
+    card_against_cpu("[S4]", "clusters", lambda d: mt.ClusterAnalysis(
+        thinned(cut, 27), cbox, 3.0, device=d).compute(),
+        lambda o: (o.particleClusters,))
+
+    shear = np.eye(3)
+    shear[0, 1] = 0.01
+    cur = pos @ shear + rng.normal(0.0, 0.05, pos.shape)
+    ref = StandInSystem(pos, box, "Cu", device="cuda")
+    strain = mt.AtomicStrain(5.0, ref)
+    M = ref.verlet_list.shape[1]
+    current = StandInSystem(cur, box.matrix @ shear, "Cu")
+    run = lambda: strain.compute(current)  # noqa: E731
+    s = run()
+    print(f"    AtomicStrain: mean shear strain {float(np.mean(s.shear_strain)):.6f}"
+          f", mean volumetric {float(np.mean(s.volumetric_strain)):.3e}")
+    # two displacements a slot; V and W (18 each); a 3x3 inverse, F, eps and
+    # the outputs (~150) an atom
+    out["strain"] = analysis_call(
+        "[S4]", f"AtomicStrain(rc 5).compute, 1 % shear + 0.05 A rattle, "
+        f"{M} columns", run, lambda o: (o.shear_strain, o.volumetric_strain),
+        card, n * (M * (2 * OPS_DISP + 36) + 150), n * (48 + M * 4 + 16))
+
+    def strain_cut(d):
+        cur_c = cut @ shear + np.random.default_rng(28).normal(0.0, 0.05,
+                                                                cut.shape)
+        return mt.AtomicStrain(5.0, StandInSystem(cut, cbox, "Cu", device=d),
+                               device=d).compute(
+            StandInSystem(cur_c, cbox.matrix @ shear, "Cu"))
+
+    card_against_cpu("[S4]", "atomic strain", strain_cut,
+                     lambda o: (o.shear_strain, o.volumetric_strain))
+    del strain, ref, current
+
+    def defective(p, seed):
+        r = np.random.default_rng(seed)
+        q = p + r.normal(0.0, 0.05, p.shape)
+        moved = r.choice(len(p), len(p) // 100, replace=False)
+        q[moved] += np.array([3.615 / 2, 0.0, 0.0])   # onto octahedral sites
+        return q
+
+    cur = defective(pos, 29)
+    ws = mt.WignerSeitzAnalysis((pos, box))
+    run = lambda: ws.compute((cur, box))  # noqa: E731
+    w = run()
+    print(f"    WignerSeitzAnalysis: {n // 100} atoms moved onto interstitial "
+          f"sites: {w.vacancy_number} vacancies, {w.interstitial_number} "
+          "interstitials")
+    if not 0 < w.vacancy_number <= n // 100:
+        fail(f"[S4] Wigner-Seitz: {w.vacancy_number} vacancies for "
+             f"{n // 100} atoms moved")
+    out["wigner_seitz"] = analysis_call(
+        "[S4]", "WignerSeitzAnalysis.compute, 1 % of the atoms interstitial",
+        run, lambda o: (o.occupancy,), card, 0, n * (24 + 24 + 8 + 4))
+    card_against_cpu("[S4]", "Wigner-Seitz", lambda d: mt.WignerSeitzAnalysis(
+        (cut, cbox), device=d).compute((defective(cut, 30), cbox)),
+        lambda o: (o.occupancy,))
+    return out
+
+
+def analysis_phases(card: str) -> dict:
+    """[S1]-[S4], after [P1]."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # _torch_system
+    t0 = time.perf_counter()
+    out = {}
+    for name, phase in (("S1", classifier_phase), ("S2", diamond_phase),
+                        ("S3", distribution_phase), ("S4", graph_phase)):
+        t1 = time.perf_counter()
+        out[name] = phase(card)
+        torch.cuda.empty_cache()
+        print(f"[{name}] {time.perf_counter() - t1:.1f} s")
+    print(f"[S1-S4] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -2626,6 +3087,8 @@ def main() -> None:
 
     potentials = potential_phases(card)
     print(json.dumps({"potentials": potentials}))
+    analyses = analysis_phases(card)
+    print(json.dumps({"analyses": analyses}))
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",

@@ -11,7 +11,10 @@ reference it is tested against.  Ported so far, for one card:
   lists, Verlet lists and k-nearest neighbors in torch ops;
 * the potentials' force path: ``EAM`` (with ``EAMAverage`` and
   ``EAMGenerator``), ``NEP`` (NEP3/4/5, with ZBL) and the ``FIRE``
-  minimizer, in float64.
+  minimizer, in float64;
+* the structure analyses that the JAX package computes through jax (CSP,
+  CNA, Ackland-Jones, diamond, CNP, Steinhardt, Chill+, entropy, RDF, ADF,
+  bonds, clusters, atomic strain, Wigner-Seitz), in float64 torch ops.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or ``backend="cpu"`` for the renderer).  This package
@@ -36,6 +39,20 @@ _LAZY = {
     "EAMGenerator": (".potentials.eam", "EAMGenerator"),
     "NEP": (".potentials.nep", "NEP"),
     "FIRE": (".potentials.minimizer", "FIRE"),
+    "CentroSymmetryParameter": (".analysis.centro_symmetry_parameter", "CentroSymmetryParameter"),
+    "CommonNeighborAnalysis": (".analysis.common_neighbor_analysis", "CommonNeighborAnalysis"),
+    "AcklandJonesAnalysis": (".analysis.ackland_jones_analysis", "AcklandJonesAnalysis"),
+    "CommonNeighborParameter": (".analysis.common_neighbor_parameter", "CommonNeighborParameter"),
+    "IdentifyDiamondStructure": (".analysis.identify_diamond_structure", "IdentifyDiamondStructure"),
+    "RadialDistributionFunction": (".analysis.radial_distribution_function", "RadialDistributionFunction"),
+    "SteinhardtBondOrientation": (".analysis.steinhardt_bond_orientation", "SteinhardtBondOrientation"),
+    "StructureEntropy": (".analysis.structure_entropy", "StructureEntropy"),
+    "AtomicStrain": (".analysis.atomic_strain", "AtomicStrain"),
+    "ClusterAnalysis": (".analysis.cluster_analysis", "ClusterAnalysis"),
+    "WignerSeitzAnalysis": (".analysis.wigner_seitz_defect", "WignerSeitzAnalysis"),
+    "AngularDistributionFunction": (".analysis.angular_distribution_function", "AngularDistributionFunction"),
+    "BondAnalysis": (".analysis.bond_analysis", "BondAnalysis"),
+    "ChillPlus": (".analysis.chill_plus", "ChillPlus"),
 }
 
 __all__ = sorted(_LAZY)

@@ -1,11 +1,13 @@
 """Exact k-nearest-neighbor search on the cell grid.
 
 The port of ``mdapy_tpu/neighbor/knn.py``: ``knn_search`` (:27) and
-``NearestNeighbor`` (:73).  The cell grid spans at least rc along every
-axis, so the 27-cell stencil covers the whole ball of radius rc around a
-query: once every atom has k candidates within rc, its k nearest lie in
-that ball and the masked top-k is exact.  The host loop grows rc (seeded
-from the density) by 1.5x until every atom has them, usually in one pass.
+``NearestNeighbor`` (:73); ``knn_tensors`` is ``knn_search`` with its
+result left on the device, for the analyses.  The cell grid spans at least
+rc along every axis, so the 27-cell stencil covers the whole ball of radius
+rc around a query: once every atom has k candidates within rc, its k
+nearest lie in that ball and the masked top-k is exact.  The host loop
+grows rc (seeded from the density) by 1.5x until every atom has them,
+usually in one pass.
 """
 
 from __future__ import annotations
@@ -13,20 +15,19 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.box import init_box
 from ..core.device import resolve_device
 from .neighbor import CellFrame, _positions, replicate_for_small_box
 
-__all__ = ["NearestNeighbor", "knn_search"]
+__all__ = ["NearestNeighbor", "knn_search", "knn_tensors"]
 
 
-def knn_search(pos: np.ndarray, box, k: int, rc_initial: Optional[float] = None,
-               device="cuda") -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (indices (N,k) int32, distances (N,k)) sorted ascending, as
-    numpy arrays.
-
-    Indices refer to original atoms (mod N under small-box replication)."""
+def knn_tensors(pos: np.ndarray, box, k: int,
+                rc_initial: Optional[float] = None, device="cuda"):
+    """``knn_search`` with its result left on ``device``: (indices (N, k)
+    int32, distances (N, k)) tensors sorted ascending, for the analyses."""
     device = resolve_device(device, "knn_search")
     box = init_box(box)
     pos = np.ascontiguousarray(pos, dtype=np.float64)
@@ -48,12 +49,21 @@ def knn_search(pos: np.ndarray, box, k: int, rc_initial: Optional[float] = None,
             q = None if n_images == 1 else frame.pos[:n]
             verlet, dist, cnt, _ = frame.verlet(cells, M, k, query_pos=q)
             if int(cnt.min()) >= k:
-                verlet = verlet.cpu().numpy()
                 if n_images > 1:
-                    verlet = (verlet % n).astype(np.int32)
-                return verlet, dist.cpu().numpy()
+                    verlet = torch.remainder(verlet, n).int()
+                return verlet, dist
         rc *= 1.5
     raise RuntimeError("knn_search failed to converge radius (degenerate geometry?)")
+
+
+def knn_search(pos: np.ndarray, box, k: int, rc_initial: Optional[float] = None,
+               device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (indices (N,k) int32, distances (N,k)) sorted ascending, as
+    numpy arrays.
+
+    Indices refer to original atoms (mod N under small-box replication)."""
+    verlet, dist = knn_tensors(pos, box, k, rc_initial, device)
+    return verlet.cpu().numpy(), dist.cpu().numpy()
 
 
 class NearestNeighbor:

@@ -2,11 +2,12 @@
 
 The port of ``mdapy_tpu/neighbor/neighbor.py``: ``replicate_for_small_box``
 (:26), ``neighbor_search`` (:53), ``neighbor_search_device`` (:143) and
-``Neighbor`` (:275).  Fixed-capacity Verlet lists with a hard overflow
-ValueError when the user passes ``max_neigh`` too small, an auto-sizing path
-(a density estimate, re-run once at the true count when a row overflows),
-and small-box replication so that the minimum image holds.  Rows are sorted
-by distance (ascending); -1 pads empty slots.
+``Neighbor`` (:275); ``neighbor_tensors`` is ``neighbor_search`` with its
+result left on the device, for the analyses.  Fixed-capacity Verlet lists
+with a hard overflow ValueError when the user passes ``max_neigh`` too
+small, an auto-sizing path (a density estimate, re-run once at the true
+count when a row overflows), and small-box replication so that the minimum
+image holds.  Rows are sorted by distance (ascending); -1 pads empty slots.
 
 Not ported (TPU and jit-cache machinery): the capacity high-water cache and
 the bucketing of capacities to multiples of 4 and 8 (:80-104), which exist
@@ -30,7 +31,7 @@ from ..core.device import resolve_device
 from . import cell_list as cl
 
 __all__ = ["Neighbor", "neighbor_search", "neighbor_search_device",
-           "replicate_for_small_box"]
+           "neighbor_tensors", "replicate_for_small_box"]
 
 
 def replicate_for_small_box(
@@ -123,6 +124,26 @@ def _build(frame: CellFrame, n_query: int, max_neigh: Optional[int],
     return verlet, dist, cnt
 
 
+def neighbor_tensors(pos: np.ndarray, box, rc: float,
+                     max_neigh: Optional[int] = None, exclude_self: bool = True,
+                     device="cuda"):
+    """``neighbor_search`` with its result left on ``device``: (verlet (N,
+    cap) int32 padded with -1, dist (N, cap), cnt (N,) int32) tensors, the
+    indices those of the original atoms.  The analyses build their lists
+    here, so a list made on the card stays there."""
+    device = resolve_device(device, "neighbor_search")
+    pos = np.ascontiguousarray(pos, dtype=np.float64)
+    n = pos.shape[0]
+    if n == 0:
+        raise ValueError("Empty position array")
+    pos_c, box_c, n_images = replicate_for_small_box(pos, init_box(box), rc)
+    frame = CellFrame(pos_c, box_c, rc, device)
+    verlet, dist, cnt = _build(frame, n, max_neigh, exclude_self)
+    if n_images > 1:
+        verlet = torch.where(verlet >= 0, torch.remainder(verlet, n), -1).int()
+    return verlet, dist, cnt
+
+
 def neighbor_search(
     pos: np.ndarray,
     box,
@@ -137,18 +158,9 @@ def neighbor_search(
     Handles small-box replication: returned indices are taken modulo N so
     they always refer to original atoms.  Raises ValueError on user-capacity
     overflow."""
-    device = resolve_device(device, "neighbor_search")
-    pos = np.ascontiguousarray(pos, dtype=np.float64)
-    n = pos.shape[0]
-    if n == 0:
-        raise ValueError("Empty position array")
-    pos_c, box_c, n_images = replicate_for_small_box(pos, init_box(box), rc)
-    frame = CellFrame(pos_c, box_c, rc, device)
-    verlet, dist, cnt = _build(frame, n, max_neigh, exclude_self)
-    verlet, dist, cnt = verlet.cpu().numpy(), dist.cpu().numpy(), cnt.cpu().numpy()
-    if n_images > 1:
-        verlet = np.where(verlet >= 0, verlet % n, -1).astype(np.int32)
-    return verlet, dist, cnt
+    verlet, dist, cnt = neighbor_tensors(pos, box, rc, max_neigh,
+                                         exclude_self, device)
+    return verlet.cpu().numpy(), dist.cpu().numpy(), cnt.cpu().numpy()
 
 
 def neighbor_search_device(pos: np.ndarray, box, rc: float, dtype=None,

@@ -409,6 +409,14 @@ def test_port_imports_no_jax():
         "assert st.get_force().shape == (256, 3)\n"
         "m.FIRE(st).run(2)\n"
         "assert st.get_energy() < e0\n"
+        "box = m.Box(np.eye(3) * 4 * a)\n"
+        "assert (m.CommonNeighborAnalysis(st.pos, box, device='cpu').compute()"
+        ".cna == 1).all()\n"
+        "q = m.SteinhardtBondOrientation(st.pos, box, wlhat=True, "
+        "identify_liquid=True, device='cpu').compute()\n"
+        "assert q.qnarray.shape == (256, 4) and q.solidliquid.all()\n"
+        "c = m.ClusterAnalysis(st.pos[::2], box, 2.9, device='cpu').compute()\n"
+        "assert c.cluster_number >= 1 and c.particleClusters.min() == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
