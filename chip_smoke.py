@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port's main paths on one card: the
-renderer, the neighbor engine, the potentials and the structure analyses.
+renderer, the neighbor engine, the potentials, the structure analyses, and
+the System with its files and the qNEP charge models.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -211,8 +212,40 @@ S4. ``ClusterAnalysis`` at rc 3.0 with 30 % of N1's atoms removed (seed
     under a 1 % shear and a 0.05 A rattle; ``WignerSeitzAnalysis`` with 1 %
     of the atoms moved onto octahedral sites.
 
+The System, its files and qNEP, float64, after [S4] (each timed number
+with the card's name and power limit):
+
+IO1. N1's block rattled as in [S1] (seed 21), through the port's
+    ``System``: written with ``write_dump``, ``write_xyz``, ``write_data``
+    and as a ``.dump.gz``, each read back through ``System(filename)``;
+    the g++ build of ``mdapy_tpu_torch/native/table_parser.cpp`` into
+    ``mdapy_tpu_torch/_build/`` at its first use (its seconds printed; a
+    failed build fails the run); each file parsed once by the native
+    route (``io/_fast_table.routes``), every column and the box equal to
+    what was written bit for bit; write and read ms and MB/s per format.
+    The files go to a git-ignored directory of the checkout, removed at
+    the end.
+SY1. On that System: ``cal_centro_symmetry_parameter()``,
+    ``cal_common_neighbor_analysis()``, ``cal_ackland_jones_analysis()``,
+    ``cal_steinhardt_bond_orientation()`` ([S1]'s options) and
+    ``build_neighbor(rc=5)``, each equal bit for bit to the direct call,
+    both timed (warm medians of 3) and the System's overhead printed; then
+    a 3-frame dump ``Trajectory`` of the block saved, read back and CNA run
+    on each frame, every frame's labels equal to the direct call's.
+Q1. qNEP on rock-salt NaCl, 12^3 conventional cells (13,824 atoms, a
+    5.64 A, rattled 0.05 A): seeded ``nep4_charge1``, ``2`` and ``3``
+    models at GPUMD's ``nep.in`` defaults (``tests/_nep_file.py``); per
+    mode the warm ms of ``NEP.calculate`` (median of 3, every repeat equal
+    bit for bit), the k-vector count and chunk, launches and busy share,
+    the peak (below 40 GB), the reciprocal sum, the real-space sum and the
+    BEC timed inside a call (CUDA events) with the float64 bound of the
+    two sums and its share; the card against the CPU on 64 atoms within
+    1e-10 (energies, forces, stress, virials, charges, BEC).  Then
+    ``Spline.evaluate_torch`` on 10^7 points, orders 0-2, the card against
+    the CPU within 1e-15 relative.
+
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
-6, T2, N1, E1, F1, P1 and S1-S4.  The
+6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1 and Q1.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -225,6 +258,7 @@ limit as nvidia-smi reports them, and a JSON status line.
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -2110,6 +2144,326 @@ def analysis_phases(card: str) -> dict:
     return out
 
 
+# ---- the System, its files and qNEP (ROADMAP A12a, A9q), float64 --------
+
+QNEP_CELLS = 12       # rock-salt NaCl, 12^3 conventional cells: 13,824 atoms
+QNEP_A = 5.64
+TOL_QNEP = 1e-10      # the card against the CPU on 64 atoms
+QNEP_PEAK_MAX = 40e9
+SPLINE_POINTS = 10**7
+TOL_SPLINE = 1e-15
+# float64 operations of one (atom, k-vector) term of the reciprocal sum:
+# the phase (5), its cosine and sine (20 each), the structure-factor and
+# potential sums (8), forward; the backward pass counted as twice that
+OPS_RECIP_TERM = 3 * (5 + 40 + 8)
+# one real-space pair within the cutoff: the distance (6), erfc (25), the
+# division, the shifted terms and the charge product (8), the potential's
+# row sum (3); the backward pass counted as twice the forward
+OPS_REAL_PAIR = 3 * (6 + 25 + 8 + 3)
+
+
+def same_column(a, b) -> bool:
+    """Equal columns: floats bit for bit, integers and strings by value."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f" or b.dtype.kind == "f":
+        return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    if a.dtype.kind in "OUS" or b.dtype.kind in "OUS":
+        return a.astype(str).tolist() == b.astype(str).tolist()
+    return np.array_equal(a, b)
+
+
+def io_phase(card: str, workdir: Path) -> dict:
+    """[IO1] N1's block (rattled as in [S1]) written as a dump, an extended
+    XYZ, a LAMMPS data file and a gzipped dump, each read back through
+    ``System(filename)``."""
+    from mdapy_tpu_torch import System, native
+    from mdapy_tpu_torch.io import _fast_table
+
+    pos, box, elems = fcc_system(NEIGHBOR_CELLS, rattle=0.05, seed=21)
+    s = System(pos=pos, box=box, element_list=elems)
+    n = s.N
+    t0 = time.perf_counter()
+    lib = native.load_library("table_parser")
+    print(f"[IO1] {card}: {n} atoms of FCC Cu rattled by 0.05 A (seed 21), "
+          f"columns {s.data.columns}; the native table parser "
+          f"{lib.path.name}: g++ {lib.build_seconds:.2f} s, loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {"gxx_s": lib.build_seconds, "files": {}}
+    systems = {}
+    for tag, name, write in (
+            ("dump", "block.dump", lambda p: s.write_dump(p)),
+            ("xyz", "block.xyz", lambda p: s.write_xyz(p)),
+            ("data", "block.data", lambda p: s.write_data(p)),
+            ("dump.gz", "block.dump.gz", lambda p: s.write_dump(p))):
+        path = str(workdir / name)
+        t0 = time.perf_counter()
+        write(path)
+        w_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        _fast_table.reset_routes()
+        t0 = time.perf_counter()
+        r = System(path)
+        r_s = time.perf_counter() - t0
+        if _fast_table.routes != {"native": 1, "numpy": 0}:
+            fail(f"[IO1] {name}: parsed by {_fast_table.routes}, not once by "
+                 "the native parser")
+        bad = [c for c in s.data.columns
+               if c not in r.data or not same_column(r.data[c], s.data[c])]
+        if bad:
+            fail(f"[IO1] {name}: columns {bad} differ from what was written")
+        if not (np.array_equal(r.box.matrix, s.box.matrix)
+                and np.array_equal(r.box.origin, s.box.origin)
+                and np.array_equal(r.box.boundary, s.box.boundary)):
+            fail(f"[IO1] {name}: the box differs from what was written")
+        print(f"  {tag}: {size} B; write {w_s * 1e3:.1f} ms "
+              f"({size / w_s / 1e6:.1f} MB/s), read {r_s * 1e3:.1f} ms "
+              f"({size / r_s / 1e6:.1f} MB/s), native route; every column "
+              f"and the box equal bit for bit; {card}")
+        out["files"][tag] = {"bytes": size, "write_ms": w_s * 1e3,
+                             "read_ms": r_s * 1e3}
+        systems[tag] = r
+    return out, systems["dump"], pos, box
+
+
+def warm_median(fn):
+    """Median host ms of 3 calls of ``fn`` whose kernels an earlier phase
+    has warmed (no warm-up call), and the first call's result."""
+    first, t = sync_time(fn)
+    times = [t * 1e3] + [sync_time(fn)[1] * 1e3 for _ in range(2)]
+    return float(np.median(times)), first
+
+
+def system_phase(card: str, s, pos, box, workdir: Path) -> dict:
+    """[SY1] The user's path: ``System.cal_*`` and ``build_neighbor`` on the
+    System [IO1] read, against the direct calls of [S1]; then a 3-frame
+    dump ``Trajectory`` of the block with CNA on each frame."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_search
+
+    kw = dict(llist=(4, 6), nnn=12, wlhat=True, average=True,
+              identify_liquid=True)
+    out = {}
+    print(f"[SY1] {card}: System.cal_* on the {s.N}-atom System read from "
+          "the dump, against the classes called directly on the same "
+          "positions (medians of 3, warmed by [S1])")
+    for name, via_system, direct, outputs in (
+            ("csp", lambda: s.cal_centro_symmetry_parameter(),
+             lambda: mt.CentroSymmetryParameter(pos, box, 12).compute().csp,
+             lambda o: (o,)),
+            ("cna", lambda: s.cal_common_neighbor_analysis(),
+             lambda: mt.CommonNeighborAnalysis(pos, box).compute().cna,
+             lambda o: (o,)),
+            ("aja", lambda: s.cal_ackland_jones_analysis(),
+             lambda: mt.AcklandJonesAnalysis(pos, box).compute().aja,
+             lambda o: (o,)),
+            ("steinhardt", lambda: s.cal_steinhardt_bond_orientation(**kw),
+             lambda: mt.SteinhardtBondOrientation(pos, box, **kw).compute().qnarray,
+             lambda o: (o,)),
+            ("build_neighbor", lambda: s.build_neighbor(rc=5.0),
+             lambda: neighbor_search(pos, box, 5.0), lambda o: tuple(o))):
+        sys_ms, got = warm_median(via_system)
+        dir_ms, want = warm_median(direct)
+        if not same_bits(outputs(got), outputs(want)):
+            fail(f"[SY1] {name}: the System's result differs from the direct call")
+        if name == "cna":
+            cna = want
+        print(f"  {name}: System {sys_ms:.3f} ms, direct {dir_ms:.3f} ms, "
+              f"System overhead {sys_ms - dir_ms:+.3f} ms; equal bit for bit; "
+              f"{card}")
+        out[name] = {"system_ms": sys_ms, "direct_ms": dir_ms}
+    for col in ("csp", "cna", "aja", "ql4", "ql6", "solidliquid"):
+        if col not in s.data:
+            fail(f"[SY1] the System has no column {col!r} after its cal_* calls")
+
+    path = str(workdir / "traj.dump")
+    block = s.data.select(["id", "type", "x", "y", "z", "element"])
+    frames = [mt.System(data=block, box=s.box, global_info={"timestep": k})
+              for k in range(3)]
+    t0 = time.perf_counter()
+    mt.Trajectory(systems=frames).save(path)
+    w_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traj = mt.Trajectory(path, verbose=False)
+    r_s = time.perf_counter() - t0
+    if len(traj) != 3 or [f.global_info["timestep"] for f in traj] != [0, 1, 2]:
+        fail(f"[SY1] the trajectory read back holds {len(traj)} frames")
+    t0 = time.perf_counter()
+    for k, f in enumerate(traj):
+        if not np.array_equal(f.cal_common_neighbor_analysis(), cna):
+            fail(f"[SY1] CNA of trajectory frame {k} differs from the direct call")
+    c_s = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    print(f"  Trajectory: 3 frames of {s.N} atoms, {size} B; save "
+          f"{w_s * 1e3:.1f} ms, read {r_s * 1e3:.1f} ms "
+          f"({size / r_s / 1e6:.1f} MB/s); CNA on each frame {c_s * 1e3:.1f} "
+          f"ms in all, every frame's labels equal the direct call's; {card}")
+    out["trajectory"] = {"bytes": size, "save_ms": w_s * 1e3,
+                         "read_ms": r_s * 1e3, "cna_ms": c_s * 1e3}
+    return out
+
+
+def qnep_phase(card: str, outdir: Path) -> dict:
+    """[Q1] qNEP on 13,824 atoms of NaCl in charge modes 1-3, and
+    ``Spline.evaluate_torch`` on 10^7 points."""
+    from _nep_file import rock_salt, write_nep
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.core.device import resolve_device
+    from mdapy_tpu_torch.potentials import nep as tnep
+
+    dev = resolve_device("cuda", "[Q1]")
+    pos, cell, elems = rock_salt(QNEP_CELLS, QNEP_A, seed=31)
+    n = len(pos)
+    keys = ("energies", "forces", "stress", "virials", "charges", "bec")
+    out = {}
+    for mode in (1, 2, 3):
+        path = write_nep(outdir / f"NaCl_charge{mode}.txt", version=4,
+                         elements=("Na", "Cl"), charge_mode=mode, seed=40 + mode)
+        pot = mt.NEP(path)
+        s = mt.System(pos=pos, box=cell, element_list=elems)
+        run = lambda: pot.calculate(s)  # noqa: E731
+        run()
+        first = {k: pot.results[k].clone() for k in keys}
+        times = []
+        for _ in range(3):
+            _, t = sync_time(run)
+            times.append(t * 1e3)
+            if not all(torch.equal(first[k], pot.results[k]) for k in keys):
+                fail(f"[Q1] charge mode {mode}: a repeat differs from the first call")
+        ms = float(np.median(times))
+        res = {k: v.cpu().numpy() for k, v in first.items()}
+        if not all(np.isfinite(v).all() for v in res.values()):
+            fail(f"[Q1] charge mode {mode}: a result is not finite")
+        if res["bec"].shape != (n, 9) or abs(float(res["charges"].sum())) > 1e-9:
+            fail(f"[Q1] charge mode {mode}: BEC shape {res['bec'].shape}, "
+                 f"total charge {float(res['charges'].sum())}")
+        # the sums apart, inside one call (CUDA events)
+        parts = {k: Recorder(getattr(tnep, k))
+                 for k in ("recip_sum", "real_sum", "born_charges")}
+        with swapped(tnep, **parts):
+            run()
+        part_ms = {k: r.total_ms() for k, r in parts.items()}
+        prof = profile_call(run)
+        peak = peak_of(run)
+        if peak > QNEP_PEAK_MAX:
+            fail(f"[Q1] charge mode {mode}: peak {peak} B over {QNEP_PEAK_MAX:.0f}")
+        nvec = tnep.ewald_nvecs(cell, pot.alpha_q)
+        K, chunk = len(nvec), tnep.recip_chunk(n)
+        _, _, _, verlet, _ = pot._prepare_device(s)
+        pos_d = torch.as_tensor(pos, device=dev)
+        j = verlet.clamp(min=0).long()
+        d = (pos_d[j] - pos_d[:, None]).remainder(cell[0, 0])
+        d = torch.minimum(d, cell[0, 0] - d).norm(dim=-1)
+        pairs = int(((verlet >= 0) & (d < pot.rc_radial)).sum())
+        pairs_a = int(((verlet >= 0) & (d < pot.rc_angular)).sum())
+        M = verlet.shape[1]
+        del verlet, j, d, pos_d
+        line = (f"[Q1] {card}: nep4_charge{mode} (Na, Cl; cutoff 8 4, n_max 4 4, "
+                f"basis_size 8 8, l_max 4 2 0, 30 neurons) on {n} atoms of NaCl "
+                f"(a {QNEP_A} A, {QNEP_CELLS}^3 cells, rattled 0.05 A), float64: "
+                f"capacity {M}; energy {float(res['energies'].sum()):.6f} eV, "
+                f"max |F| {float(np.abs(res['forces']).max()):.4f} eV/A, max "
+                f"|q| {float(np.abs(res['charges']).max()):.4f} e")
+        if mode in (1, 2):
+            line += f"; K = {K} k-vectors in chunks of {chunk}"
+        print(line)
+        rec = {"ms": ms, "K": K if mode in (1, 2) else 0, "chunk": chunk,
+               **{f"{k}_ms": v for k, v in part_ms.items()}}
+        # the whole call: the descriptor and its two backward passes as
+        # [P1] counts them, and the sums below
+        ops = 3 * (pairs * OPS_NEP_RADIAL_PAIR + pairs_a * OPS_NEP_ANGULAR_PAIR
+                   + n * 2 * pot.num_neurons * pot.dim)
+        ops += (n * K * OPS_RECIP_TERM if mode in (1, 2) else 0)
+        ops += (pairs * OPS_REAL_PAIR if mode in (1, 3) else 0)
+        c_ms, c_by = f64_bound(ops, n * 32 + n * M * 4 + n * 22 * 8)
+        rec["call"] = print_call("[Q1]", f"NEP.calculate (charge mode {mode})",
+                                 ms, prof, c_ms, c_by, peak, card)
+        bounds = []
+        if mode in (1, 2):
+            b, by = f64_bound(n * K * OPS_RECIP_TERM, n * (24 + 8 + 16 + 24)
+                              + K * 12)
+            bounds.append(("reciprocal sum", "recip_sum", b, by))
+        if mode in (1, 3):
+            b, by = f64_bound(pairs * OPS_REAL_PAIR, n * M * (4 + 24 + 24) + n * 24)
+            bounds.append((f"real-space sum ({pairs} pairs within "
+                           f"{pot.rc_radial} A)", "real_sum", b, by))
+        for what, key, b, by in bounds:
+            t = part_ms[key]
+            print(f"    {what}: {t:.3f} ms (CUDA events); bound {b:.4f} ms by "
+                  f"{by}, share {b / t * 100:.2f} %; {card}")
+            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = b, by
+        print(f"    BEC (reverse-pair row sums): {part_ms['born_charges']:.3f} "
+              f"ms; every repeat equal bit for bit; peak {peak} B (< 40 GB); "
+              f"{card}")
+        out[f"mode{mode}"] = rec
+        del pot, s
+        torch.cuda.empty_cache()
+
+        # the card against the CPU on 64 atoms (a small box: replicated)
+        spos, scell, sel = rock_salt(2, QNEP_A, rattle=0.1, seed=32)
+        got = []
+        for device in ("cuda", "cpu"):
+            p = mt.NEP(path, device=device)
+            p.calculate(mt.System(pos=spos, box=scell, element_list=sel,
+                                  device=device))
+            got.append([p._fetch(k) for k in keys])
+        err = max(float(np.abs(a - b).max()) for a, b in zip(*got))
+        print(f"    card against the CPU, 64 atoms: max |diff| {err:.3e} "
+              f"(energies, forces, stress, virials, charges, BEC)")
+        if err > TOL_QNEP:
+            fail(f"[Q1] charge mode {mode}: the card and the CPU differ by {err}")
+        rec["card_cpu_err"] = err
+
+    # Spline.evaluate_torch on 10^7 points, the card against the CPU
+    x = np.linspace(0.0, 10.0, 200)
+    sp = mt.Spline(x, np.sin(x) * np.exp(-0.2 * x))
+    xq = torch.rand(SPLINE_POINTS, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5)) * 10.0
+    errs = []
+    for order in (0, 1, 2):
+        xc = xq.to(dev)
+        s_ms, yc = median_ms(lambda: sp.evaluate_torch(xc, order), 3)
+        yh = sp.evaluate_torch(xq, order)
+        rel = float((yc.cpu() - yh).abs().max() / yh.abs().max())
+        if rel > TOL_SPLINE:
+            fail(f"[Q1] Spline.evaluate_torch order {order}: card against CPU "
+                 f"{rel}")
+        errs.append(rel)
+        print(f"  Spline.evaluate_torch order {order} on {SPLINE_POINTS} "
+              f"points: {s_ms:.3f} ms on the card, card against the CPU "
+              f"{rel:.1e} relative; {card}")
+    out["spline"] = {"max_rel_err": max(errs)}
+    return out
+
+
+def system_phases(card: str) -> dict:
+    """[IO1], [SY1] and [Q1], after [S4]; the files in a git-ignored
+    directory of the checkout, removed at the end."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # _nep_file
+    outdir = root / "chiprun_out" / "smoke"
+    outdir.mkdir(parents=True, exist_ok=True)
+    workdir = root / "mdapy_tpu_torch" / "_build" / "smoke_io"
+    workdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        io, s, pos, box = io_phase(card, workdir)
+        print(f"[IO1] {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        out = {"IO1": io, "SY1": system_phase(card, s, pos, box, workdir)}
+        print(f"[SY1] {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del s
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["Q1"] = qnep_phase(card, outdir)
+    print(f"[Q1] {time.perf_counter() - t1:.1f} s")
+    print(f"[IO1-Q1] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -3089,6 +3443,8 @@ def main() -> None:
     print(json.dumps({"potentials": potentials}))
     analyses = analysis_phases(card)
     print(json.dumps({"analyses": analyses}))
+    system = system_phases(card)
+    print(json.dumps({"system": system}))
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",

@@ -14,7 +14,11 @@ reference it is tested against.  Ported so far, for one card:
   minimizer, in float64;
 * the structure analyses that the JAX package computes through jax (CSP,
   CNA, Ackland-Jones, diamond, CNP, Steinhardt, Chill+, entropy, RDF, ADF,
-  bonds, clusters, atomic strain, Wigner-Seitz), in float64 torch ops.
+  bonds, clusters, atomic strain, Wigner-Seitz), in float64 torch ops;
+* the qNEP charge models (``nep4_charge1/2/3``, with their Ewald sums and
+  Born effective charges) and ``Spline``;
+* ``System`` with its file I/O (dump, XYZ, POSCAR, LAMMPS data, mp; the
+  native table parser built with g++ at first use) and trajectories.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or ``backend="cpu"`` for the renderer).  This package
@@ -53,6 +57,20 @@ _LAZY = {
     "AngularDistributionFunction": (".analysis.angular_distribution_function", "AngularDistributionFunction"),
     "BondAnalysis": (".analysis.bond_analysis", "BondAnalysis"),
     "ChillPlus": (".analysis.chill_plus", "ChillPlus"),
+    "System": (".core.system", "System"),
+    "AtomFrame": (".core.frame", "AtomFrame"),
+    "element_data": (".core.elements", None),
+    "init_box": (".core.box", "init_box"),
+    "BuildSystem": (".io.load_save", "BuildSystem"),
+    "SaveSystem": (".io.load_save", "SaveSystem"),
+    "load": (".io.load_save", "load"),
+    "save": (".io.load_save", "save"),
+    "Trajectory": (".io.trajectory", "Trajectory"),
+    "XYZTrajectory": (".io.trajectory", "XYZTrajectory"),
+    "unwrap_trajectory": (".io.trajectory", "unwrap_trajectory"),
+    "Spline": (".utils.spline", "Spline"),
+    "get_num_threads": (".utils.parallel", "get_num_threads"),
+    "CalculatorMP": (".potentials.calculator", "CalculatorMP"),
 }
 
 __all__ = sorted(_LAZY)
@@ -67,7 +85,7 @@ def __getattr__(name):
     import importlib
 
     module = importlib.import_module(module_name, __name__)
-    value = getattr(module, attr)
+    value = module if attr is None else getattr(module, attr)
     globals()[name] = value
     return value
 

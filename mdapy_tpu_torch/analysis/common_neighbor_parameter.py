@@ -1,7 +1,7 @@
 """Common neighbor parameter (Tsuzuki, Branicio and Rino).
 
 The port of ``mdapy_tpu/analysis/common_neighbor_parameter.py``
-(``_cnp_chunk`` :83): cnp_i = (1/N_i) sum_{j in nb(i)} |sum_{k in cn(i,j)}
+(``cnp_from_neighbors`` :24, ``_cnp_chunk`` :83): cnp_i = (1/N_i) sum_{j in nb(i)} |sum_{k in cn(i,j)}
 (r_ik + r_jk)|^2 over the neighbors within rc, 1000.0 for an atom without
 one.  The (atoms, M, M, M) membership test goes in chunks of
 ``common.CHUNK_BYTES``; the sums are row sums.
@@ -16,7 +16,7 @@ from ..core.box import init_box
 from ..core.device import resolve_device
 from .common import box_tensors, min_image, row_chunks
 
-__all__ = ["CommonNeighborParameter"]
+__all__ = ["CommonNeighborParameter", "cnp_from_neighbors"]
 
 
 class CommonNeighborParameter:
@@ -37,17 +37,32 @@ class CommonNeighborParameter:
     def compute(self):
         dev = self.device
         m, inv, b = box_tensors(self.box, dev)
-        n = len(self.pos)
-        vl = torch.as_tensor(self.verlet_list, device=dev)
-        dl = torch.as_tensor(self.distance_list, dtype=torch.float64,
-                             device=dev)
-        pos = torch.as_tensor(self.pos, device=dev)
-        M = vl.shape[1]
-        out = torch.empty(n, dtype=torch.float64, device=dev)
-        for s, e in row_chunks(n, 3 * M**3 + M * M * 3 * 8 * 6):
-            out[s:e] = _cnp_chunk(pos, vl, dl, m, inv, b, self.rc, s, e)
-        self.cnp = out.cpu().numpy()
+        self.cnp = cnp_from_neighbors(
+            self.pos, self.verlet_list, self.distance_list, m, inv, b,
+            self.rc, device=dev).cpu().numpy()
         return self
+
+
+def cnp_from_neighbors(pos, verlet, dist, matrix, inv, boundary, rc,
+                       device=None):
+    """cnp of every atom from its neighbor list, as a tensor: the JAX
+    package's function of the same name, over ``_cnp_chunk`` in chunks of
+    rows.  The arguments may be tensors or arrays; it runs on ``device``,
+    by default the device of ``pos`` when it is a tensor, else the card."""
+    if device is None:
+        device = pos.device if torch.is_tensor(pos) else "cuda"
+    dev = resolve_device(device, "cnp_from_neighbors")
+
+    pos, dist, matrix, inv, boundary = (
+        torch.as_tensor(a, dtype=torch.float64, device=dev)
+        for a in (pos, dist, matrix, inv, boundary))
+    verlet = torch.as_tensor(verlet, device=dev)
+    n, M = verlet.shape
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    for s, e in row_chunks(n, 3 * M**3 + M * M * 3 * 8 * 6):
+        out[s:e] = _cnp_chunk(pos, verlet, dist, matrix, inv, boundary,
+                              float(rc), s, e)
+    return out
 
 
 def _cnp_chunk(pos, verlet, dist, matrix, inv, boundary, rc: float,

@@ -15,7 +15,7 @@ classifies on the host in numpy; here both run on the device, the triple
 sum over the (m1, m2) terms at once.
 
 ``use_voronoi`` needs the native Voronoi engine, which comes with ROADMAP
-A12: it raises ``NotImplementedError`` until then.
+A12d: it raises ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -187,7 +187,7 @@ class SteinhardtBondOrientation:
             if self.use_voronoi:
                 raise NotImplementedError(
                     "use_voronoi needs the native Voronoi engine, which the "
-                    "port does not have yet (ROADMAP A12); pass nnn or rc, "
+                    "port does not have yet (ROADMAP A12d); pass nnn or rc, "
                     "or precomputed verlet_list, distance_list and "
                     "neighbor_number")
             if self.nnn > 0:

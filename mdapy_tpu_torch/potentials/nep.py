@@ -1,19 +1,26 @@
 """NEP (neuroevolution potential, GPUMD) in torch ops: forward and autograd
-forces.
+forces, and the qNEP charge models.
 
-The port of ``mdapy_tpu/potentials/nep.py`` without its charge models:
-``NEP`` (:81: ``_parse`` :88, ``_types`` :222, ``_compact_tables`` :230,
-``_prepare_device`` :267, ``calculate`` :282, ``get_descriptors`` :384,
-``get_latent_space`` :387), ``_chebyshev_basis`` (:441), ``_angular_s``
-(:452), ``_q_from_s`` (:482), ``_block_q`` (:523), ``_zbl_energy_oh``
-(:570), ``_block_e`` (:595), ``_gather_disp`` (:606), ``_map_blocks``
-(:635), ``_nep_force_fast`` (:653), ``_nep_descriptor_fast`` (:694) and
-``_ann_energy`` (:739).  NEP3/NEP4/NEP5, with and without ZBL: Chebyshev
-radial basis with the cosine cutoff, the angular descriptor through the
-real solid-harmonic accumulators (Z_COEFFICIENT tables, C3B/C4B/C5B
-contractions), a single-hidden-layer tanh ANN per type, q_scaler, the ZBL
-screened-Coulomb channel.  A flexible-ZBL file parses (its ``zbl_para``
-kept) and, as in the JAX package, evaluates without the ZBL channel.
+The port of ``mdapy_tpu/potentials/nep.py``: ``NEP`` (:81: ``_parse`` :88,
+``_types`` :222, ``_compact_tables`` :230, ``_prepare_device`` :267,
+``calculate`` :282, ``_calculate_qnep`` :324, ``get_charges`` :350,
+``get_bec`` :360, ``get_descriptors`` :384, ``get_latent_space`` :387),
+``_chebyshev_basis`` (:441), ``_angular_s`` (:452), ``_q_from_s`` (:482),
+``_block_q`` (:523), ``_zbl_energy_oh`` (:570), ``_block_e`` (:595),
+``_gather_disp`` (:606), ``_map_blocks`` (:635), ``_nep_force_fast``
+(:653), ``_nep_descriptor_fast`` (:694), ``_ann_energy`` (:739) and the
+qNEP machinery (:748-966: ``_ewald_nvecs``, ``_recip_pe``, ``_real_pe``,
+``_qnep_energy_atoms``, ``_qnep_bec``, ``_qnep_compute``).  NEP3/NEP4/NEP5,
+with and without ZBL: Chebyshev radial basis with the cosine cutoff, the
+angular descriptor through the real solid-harmonic accumulators
+(Z_COEFFICIENT tables, C3B/C4B/C5B contractions), a single-hidden-layer
+tanh ANN per type, q_scaler, the ZBL screened-Coulomb channel.  A
+flexible-ZBL file parses (its ``zbl_para`` kept) and, as in the JAX
+package, evaluates without the ZBL channel.  ``nep4_charge1/2/3`` models
+add a charge head, zero-mean charges, an Ewald electrostatic energy (mode
+1: reciprocal + real-space erfc + self-energy; mode 2: reciprocal only;
+mode 3: shifted real-space only) and Born effective charges
+(``qnep_compute``).
 
 Forces and virials come as in the JAX package: per row block, the
 autograd gradient of the block's energy with respect to its (B, M)
@@ -21,17 +28,17 @@ displacement components (``torch.autograd.grad``), then
 ``pairops.pair_forces_virials`` over the reverse-pair permutation: gathers
 and row sums, never a backward through a gather of positions (whose
 ``index_add_`` would sum in another order on every run).  Blocks hold
-about 2^21 pair slots, so one block's autograd graph fits the card.
+about 2^21 pair slots, so one block's autograd graph fits the card.  The
+reciprocal sum goes in chunks of k-vectors whose graphs live one at a time.
 
-Not ported: qNEP (the ``nep4_charge*`` models, :324-360 and :780-966,
-ROADMAP A9), whose files raise ``NotImplementedError``; the knobs
-``MDAPY_TPU_NEP_BLOCK`` and ``MDAPY_TPU_NEP_VALIDATE`` (the neighbor list's
-symmetry is held by tests, ROADMAP C4).  Calculators run on the card unless
-built with ``device="cpu"``; everything is float64.
+Not ported: the knobs ``MDAPY_TPU_NEP_BLOCK`` and ``MDAPY_TPU_NEP_VALIDATE``
+(the neighbor list's symmetry is held by tests, ROADMAP C4).  Calculators
+run on the card unless built with ``device="cpu"``; everything is float64.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -95,6 +102,10 @@ class NEPStatic(NamedTuple):
     zbl: bool
     zbl_inner: float
     zbl_outer: float
+    charge_mode: int = 0
+    alpha_q: float = 0.0
+    charge_A: float = 0.0
+    charge_B: float = 0.0
 
 
 class NEP(CalculatorMP):
@@ -115,10 +126,10 @@ class NEP(CalculatorMP):
         head = next(tokens_iter)
         self.model_name = head[0]
         base = head[0]
+        self.charge_mode = 0
         if "_charge" in base:
-            raise NotImplementedError(
-                f"{base!r} is a qNEP (charge) model; the port does not run "
-                "qNEP yet (ROADMAP A9)")
+            base, _, cm = base.rpartition("_charge")
+            self.charge_mode = int(cm)
         if base in ("nep3", "nep", "nep3_zbl", "nep_zbl"):
             self.version = 3
         elif base in ("nep4", "nep4_zbl"):
@@ -172,6 +183,9 @@ class NEP(CalculatorMP):
             num_ann = (self.dim + 2) * self.num_neurons * nt + 1
         else:
             num_ann = ((self.dim + 2) * self.num_neurons + 1) * nt + 1
+        if self.charge_mode > 0:
+            # the charge head (w1 doubles) and sqrt(eps_inf)
+            num_ann += self.num_neurons * nt + 1
         num_c = nt * nt * (
             (self.n_max_radial + 1) * (self.basis_size_radial + 1)
             + (self.n_max_angular + 1) * (self.basis_size_angular + 1)
@@ -192,6 +206,7 @@ class NEP(CalculatorMP):
         w0 = np.zeros((nt, self.num_neurons, self.dim))
         b0 = np.zeros((nt, self.num_neurons))
         w1 = np.zeros((nt, self.num_neurons))
+        w1c = np.zeros((nt, self.num_neurons))
         p = 0
         for tt in range(nt):
             if tt > 0 and self.version == 3:
@@ -204,8 +219,15 @@ class NEP(CalculatorMP):
             p += self.num_neurons
             w1[tt] = params[p : p + self.num_neurons]
             p += self.num_neurons
+            if self.charge_mode > 0:
+                w1c[tt] = params[p : p + self.num_neurons]
+                p += self.num_neurons
             if self.version == 5:
                 p += 1
+        self.sqrt_epsilon_inf = 1.0
+        if self.charge_mode > 0:
+            self.sqrt_epsilon_inf = float(params[p])
+            p += 1
         self.b1 = float(params[p])
         cparams = params[num_ann:]
         nr = (self.n_max_radial + 1) * (self.basis_size_radial + 1)
@@ -215,7 +237,17 @@ class NEP(CalculatorMP):
         self.c_angular = cparams[nr * nt * nt :].reshape(
             self.n_max_angular + 1, self.basis_size_angular + 1, nt, nt
         )
-        self.w0, self.b0, self.w1 = w0, b0, w1
+        self.w0, self.b0, self.w1, self.w1c = w0, b0, w1, w1c
+
+        # electrostatic constants of the charge models (NEPCPU nep.cpp:2156-2166)
+        if self.charge_mode > 0:
+            rc = self.rc_radial
+            self.alpha_q = math.pi / rc  # "a good value"
+            self.two_alpha_over_sqrt_pi = 2.0 * self.alpha_q / math.sqrt(math.pi)
+            A = math.erfc(math.pi) / (rc * rc)
+            A += self.two_alpha_over_sqrt_pi * math.exp(-math.pi * math.pi) / rc
+            self.charge_A = A
+            self.charge_B = -math.erfc(math.pi) / rc - A * rc
 
     # ------------------------------------------------------------------
     def _types(self, system) -> np.ndarray:
@@ -269,6 +301,9 @@ class NEP(CalculatorMP):
     def calculate(self, system, box=None) -> None:
         if box is not None:  # the reference's calculate(data, box)
             system = _FrameView(system, box)
+        if self.charge_mode > 0:
+            self._calculate_qnep(system)
+            return
         pos_d, box, types, verlet_d, old_n = self._prepare_device(system)
         types_c, consts = self._compact_tables(types)
         rev_d, _ = reverse_permutation_device(verlet_d)
@@ -282,6 +317,47 @@ class NEP(CalculatorMP):
         self.results["stress"] = sig.reshape(-1)[[0, 4, 8, 5, 2, 1]]
         # exact per-atom virials (half-pair convention, sums to -dE/deps)
         self.results["virials"] = V[:old_n]
+
+    def _calculate_qnep(self, system) -> None:
+        """Energies, forces, stress, virials, charges and BEC of a
+        nep4_charge* model (the JAX package's ``_calculate_qnep``)."""
+        pos_d, box, types, verlet_d, old_n = self._prepare_device(system)
+        types_c, consts = self._compact_tables(types)
+        w1c = torch.tensor(self.w1c[np.unique(types)], device=self.device)
+        rev_d, _ = reverse_permutation_device(verlet_d)
+        nvec = ewald_nvecs(np.asarray(box.matrix, np.float64), self.alpha_q)
+        n_total = pos_d.shape[0]
+        energies, forces, dEdeps, charges, bec = qnep_compute(
+            pos_d, torch.as_tensor(types_c, device=self.device), verlet_d,
+            rev_d, box, nvec, consts, w1c, self.sqrt_epsilon_inf, self._static())
+        sig = 0.5 * (dEdeps + dEdeps.T) / abs(box.volume)
+        self.results["energies"] = energies[:old_n]
+        self.results["forces"] = forces[:old_n]
+        self.results["stress"] = sig.reshape(-1)[[0, 4, 8, 5, 2, 1]]
+        # the global virial shared evenly, as the JAX package tiles it
+        self.results["virials"] = (-dEdeps.reshape(1, 9) / n_total).expand(
+            old_n, 9).contiguous()
+        self.results["charges"] = charges[:old_n]
+        self.results["bec"] = bec[:old_n]
+
+    def get_charges(self, system, box=None) -> np.ndarray:
+        """Per-atom (zero-mean) charges; qNEP only (reference nep.py:327)."""
+        if box is not None:
+            system = _FrameView(system, box)
+        if self.charge_mode == 0:
+            raise ValueError("charges require a qNEP (nep4_charge*) model.")
+        self._ensure(system)
+        return self._fetch("charges")
+
+    def get_bec(self, system, box=None) -> np.ndarray:
+        """Per-atom Born effective charges (N, 9); qNEP only
+        (reference nep.py:350)."""
+        if box is not None:
+            system = _FrameView(system, box)
+        if self.charge_mode == 0:
+            raise ValueError("BEC requires a qNEP (nep4_charge*) model.")
+        self._ensure(system)
+        return self._fetch("bec")
 
     def _descriptor_like(self, system, latent: bool) -> np.ndarray:
         pos_d, box, types, verlet_d, old_n = self._prepare_device(system)
@@ -310,6 +386,10 @@ class NEP(CalculatorMP):
             zbl=self.zbl_enabled and not self.zbl_flexibled,
             zbl_inner=self.zbl_rc_inner,
             zbl_outer=self.zbl_rc_outer,
+            charge_mode=self.charge_mode,
+            alpha_q=getattr(self, "alpha_q", 0.0),
+            charge_A=getattr(self, "charge_A", 0.0),
+            charge_B=getattr(self, "charge_B", 0.0),
         )
 
 
@@ -540,3 +620,229 @@ def nep_descriptor(pos, types, verlet, box, consts, st: NEPStatic,
             qs = w1[types[s:e]] * h
         out.append(qs)
     return torch.cat(out, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# qNEP: the charge models (nep4_charge1/2/3)
+# ---------------------------------------------------------------------------
+
+# bytes of one (atoms, k-vectors) float64 matrix of a reciprocal-sum chunk;
+# a chunk's forward and backward hold a few of them
+RECIP_CHUNK_BYTES = 1 << 29
+TWO_PI_NEP = 6.2831853  # NEPCPU's truncated 2 pi, kept for parity
+
+
+def ewald_nvecs(matrix: np.ndarray, alpha: float) -> np.ndarray:
+    """Integer reciprocal-lattice triples of the Ewald half-space sphere.
+
+    A host copy of the JAX package's ``_ewald_nvecs`` (nep.py:780-815), the
+    mirror of EwaldNep::find_k_and_G (ewald_nep.cpp:167-237): half-space n1
+    >= 0 with the (n1==0, n2<0) / (n1==n2==0, n3<=0) rows dropped, |k|^2 <
+    (2*pi*alpha)^2.  The G weights are recomputed with the strain, so that
+    the virial differentiates through them."""
+    two_pi = TWO_PI_NEP
+    a1, a2, a3 = matrix[0], matrix[1], matrix[2]
+    det = float(np.linalg.det(matrix))
+    b1 = np.cross(a2, a3) * (two_pi / det)
+    b2 = np.cross(a3, a1) * (two_pi / det)
+    b3 = np.cross(a1, a2) * (two_pi / det)
+    volume_k = two_pi**3 / abs(det)
+    n1_max = int(alpha * two_pi * np.linalg.norm(np.cross(b2, b3)) / volume_k)
+    n2_max = int(alpha * two_pi * np.linalg.norm(np.cross(b3, b1)) / volume_k)
+    n3_max = int(alpha * two_pi * np.linalg.norm(np.cross(b1, b2)) / volume_k)
+    ksq_max = two_pi * two_pi * alpha * alpha
+    g1, g2, g3 = np.meshgrid(
+        np.arange(0, n1_max + 1),
+        np.arange(-n2_max, n2_max + 1),
+        np.arange(-n3_max, n3_max + 1),
+        indexing="ij",
+    )
+    nvec = np.stack([g1.ravel(), g2.ravel(), g3.ravel()], axis=1)
+    n1, n2, n3 = nvec[:, 0], nvec[:, 1], nvec[:, 2]
+    keep = ~(
+        ((n1 == 0) & (n2 == 0) & (n3 == 0))
+        | ((n1 == 0) & (n2 < 0))
+        | ((n1 == 0) & (n2 == 0) & (n3 < 0))
+    )
+    nvec = nvec[keep]
+    k = nvec @ np.stack([b1, b2, b3])
+    nvec = nvec[np.sum(k * k, axis=1) < ksq_max]
+    return np.ascontiguousarray(nvec, dtype=np.int32)
+
+
+def recip_chunk(n: int) -> int:
+    """k-vectors a chunk of the reciprocal sum over ``n`` atoms takes."""
+    return max(1, RECIP_CHUNK_BYTES // (8 * max(n, 1)))
+
+
+def recip_sum(pos, matrix, qbar, nvec, alpha: float):
+    """The reciprocal-space Ewald sum at fixed charges (the JAX package's
+    ``_recip_pe``, nep.py:818-838; ewald_nep.cpp:73-141), in chunks of
+    k-vectors: (per-atom energies (n,), potentials dE/dq (n,), dE/dpos (n,
+    3), dE/deps (3, 3)).
+
+    pe_i = K_C q_i sum_k G_k Re[S(k) e^{ik.r_i}], with G_k carrying the
+    factor 2 of the suppressed -k half; the energy is K_C sum_k G_k |S_k|^2.
+    Each chunk builds k from ``matrix @ strain`` and its (n, chunk) phases,
+    takes its gradients with respect to the positions and a virtual strain
+    with ``torch.autograd.grad`` at once and frees them: no chunk's graph
+    outlives it."""
+    n, dev, dt = pos.shape[0], pos.device, pos.dtype
+    mat = torch.tensor(np.asarray(matrix), dtype=dt, device=dev)
+    nv = torch.as_tensor(nvec, dtype=dt, device=dev)
+    P = pos.detach().requires_grad_(True)
+    eps = torch.zeros((3, 3), dtype=dt, device=dev, requires_grad=True)
+    eye = torch.eye(3, dtype=dt, device=dev)
+    alpha_factor = 0.25 / (alpha * alpha)
+    pe = torch.zeros(n, dtype=dt, device=dev)
+    phi = torch.zeros(n, dtype=dt, device=dev)
+    g_pos = torch.zeros((n, 3), dtype=dt, device=dev)
+    g_eps = torch.zeros((3, 3), dtype=dt, device=dev)
+    step = recip_chunk(n)
+    for c0 in range(0, nv.shape[0], step):
+        with torch.enable_grad():
+            strain = eye + eps
+            m = mat @ strain
+            f = TWO_PI_NEP / torch.linalg.det(m)
+            b = torch.stack([torch.linalg.cross(m[1], m[2]),
+                             torch.linalg.cross(m[2], m[0]),
+                             torch.linalg.cross(m[0], m[1])]) * f
+            k = nv[c0:c0 + step] @ b
+            ksq = (k * k).sum(dim=1)
+            G = 2.0 * torch.abs(f) / ksq * torch.exp(-ksq * alpha_factor)
+            kr = (P @ strain) @ k.T                                # (n, chunk)
+            c, s = torch.cos(kr), torch.sin(kr)
+            S_re = qbar @ c
+            S_im = -(qbar @ s)
+            energy = K_C_SP * (G * (S_re * S_re + S_im * S_im)).sum()
+            gp, ge = torch.autograd.grad(energy, (P, eps))
+        with torch.no_grad():
+            u = c @ (G * S_re) - s @ (G * S_im)
+            pe += K_C_SP * qbar * u
+            phi += 2.0 * K_C_SP * u
+            g_pos += gp
+            g_eps += ge
+        del kr, c, s
+    return pe, phi, g_pos, g_eps
+
+
+def real_sum(qbar, dispc, ok, verlet, st: NEPStatic):
+    """The real-space sum at fixed charges (the JAX package's ``_real_pe``,
+    nep.py:841-862): charge mode 1, 0.5 q_i q_j erfc(alpha r)/r pairs and
+    the Gaussian self-energy (NEPCPU nep.cpp:1108-1193); mode 3, the shifted
+    erfc/r + A r + B without it (nep.cpp:1028-1108).  Returns (per-atom
+    energies (n,), potentials dE/dq (n,), the pair gradient dE/d(disp), a
+    3-tuple of (n, M)).  The pair terms are elementwise and the potentials
+    row sums: q_j phi(r_ij) summed over i's row, which by the list's
+    symmetry is i's share of both halves of every pair."""
+    qj = torch.where(ok, qbar[torch.clamp(verlet, min=0).long()], 0.0)
+    dc = tuple(c.detach().requires_grad_(True) for c in dispc)
+    with torch.enable_grad():
+        d = torch.sqrt(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2])
+        okq = ok & (d < st.rc_radial)
+        phi_r = torch.special.erfc(st.alpha_q * d) / torch.clamp(d, min=1e-30)
+        if st.charge_mode == 3:
+            phi_r = phi_r + st.charge_A * d + st.charge_B
+        pair = torch.where(okq, 0.5 * (qbar[:, None] * qj) * phi_r, 0.0)
+        grads = torch.autograd.grad(K_C_SP * pair.sum(), dc)
+    with torch.no_grad():
+        pe = pair.sum(dim=1)
+        pot = torch.where(okq, qj * phi_r, 0.0).sum(dim=1)
+        if st.charge_mode == 1:
+            self_term = 2.0 * st.alpha_q / np.sqrt(np.pi)
+            pe = pe - 0.5 * self_term * qbar * qbar
+            pot = pot - self_term * qbar
+    return K_C_SP * pe, K_C_SP * pot, grads
+
+
+def qnep_compute(pos, types, verlet, rev, box, nvec, consts, w1c,
+                 sqrt_eps: float, st: NEPStatic):
+    """Energies (n,), forces (n, 3), dE/deps (3, 3), zero-mean charges (n,)
+    and Born effective charges (n, 9) of a charge model (the JAX package's
+    ``_qnep_compute``, ``_qnep_energy_atoms`` and ``_qnep_bec``,
+    nep.py:865-964).
+
+    The JAX package differentiates the whole energy at once, with the
+    charges' mean held constant (``stop_gradient``: the reference chains
+    dE/dq through the raw charges).  Here the same gradient comes in parts:
+    per row block, the short-range energy's and the raw charges' gradients
+    with respect to the block's displacements (a charge depends only on its
+    own atom's rows); then the electrostatic sums at the fixed zero-mean
+    charges, which give each atom's potential phi_i = dE/dq_i and the
+    sums' own gradients; the pair gradient J = dE_short/d(disp) + phi_i
+    dq_i/d(disp) + dE_real/d(disp) goes through ``pair_forces_virials``,
+    and the reciprocal sum adds its position and strain gradients.  The BEC
+    pair sum goes through the reverse permutation as a row sum, not a
+    scatter:
+
+        BEC_i = sqrt(eps_inf) [ q_i I + sum_m 0.5 r_im (x) dq_i/dr_im
+                                 - sum_m 0.5 r_jm' (x) dq_j/dr_jm' ]
+
+    with (j, m') the reverse pair of (i, m)."""
+    c_radial, c_angular, w0, b0, w1, b1, q_scaler, atomic_numbers = consts
+    n, M = verlet.shape
+    dev, dt = pos.device, pos.dtype
+    disp0, tj, ok = gather_disp(pos, types, verlet, box)
+    e_short = torch.empty(n, dtype=dt, device=dev)
+    charge = torch.empty(n, dtype=dt, device=dev)
+    Je = tuple(torch.empty_like(c) for c in disp0)
+    Jq = tuple(torch.empty_like(c) for c in disp0)
+    block = nep_block(n, M)
+    for s in range(0, n, block):
+        e = min(n, s + block)
+        dc = tuple(c[s:e].detach().requires_grad_(True) for c in disp0)
+        ti = types[s:e]
+        with torch.enable_grad():
+            q, d = block_q(dc, ti, tj[s:e], ok[s:e], c_radial, c_angular, st)
+            eb, h = _ann_energy(q * q_scaler[None], ti, w0, b0, w1, b1)
+            if st.zbl:
+                eb = eb + _zbl_energy(d, ok[s:e], ti, tj[s:e], atomic_numbers, st)
+            qb = (w1c[ti] * h).sum(dim=1)
+            ge = torch.autograd.grad(eb.sum(), dc, retain_graph=True)
+            gq = torch.autograd.grad(qb.sum(), dc)
+        e_short[s:e] = eb.detach()
+        charge[s:e] = qb.detach()
+        for c in range(3):
+            Je[c][s:e] = ge[c]
+            Jq[c][s:e] = gq[c]
+    qbar = charge - charge.mean()
+
+    energies = e_short
+    phi = torch.zeros(n, dtype=dt, device=dev)
+    J = Je
+    if st.charge_mode in (1, 2):
+        pe_k, phi_k, g_pos, g_eps = recip_sum(pos, box.matrix, qbar, nvec,
+                                              st.alpha_q)
+        energies = energies + pe_k
+        phi = phi + phi_k
+    if st.charge_mode in (1, 3):
+        pe_r, phi_r, J_real = real_sum(qbar, disp0, ok, verlet, st)
+        energies = energies + pe_r
+        phi = phi + phi_r
+        J = tuple(a + b for a, b in zip(J, J_real))
+    J = tuple(a + phi[:, None] * b for a, b in zip(J, Jq))
+    forces, _, dEdeps = pair_forces_virials(disp0, J, verlet, rev, ok)
+    if st.charge_mode in (1, 2):
+        forces = forces - g_pos
+        dEdeps = dEdeps + g_eps
+
+    bec = born_charges(disp0, Jq, qbar, verlet, rev, ok, sqrt_eps)
+    return energies, forces, dEdeps, qbar, bec
+
+
+def born_charges(disp, Jq, qbar, verlet, rev, ok, sqrt_eps: float):
+    """Born effective charges (n, 9) from the charges' pair gradients
+    ``Jq`` (a 3-tuple of (n, M)): the pair terms 0.5 r_a (dq/dr)_b, their
+    row sums, less their sums over the reverse pairs (gathers, no
+    scatter)."""
+    M = verlet.shape[1]
+    flat = torch.clamp(verlet.long(), min=0) * M + rev
+    cols = []
+    for a in range(3):
+        da = torch.where(ok, disp[a], 0.0)
+        for b in range(3):
+            pair = 0.5 * da * Jq[b]
+            back = torch.where(ok, pair.reshape(-1)[flat], 0.0)
+            cols.append(pair.sum(dim=1) - back.sum(dim=1)
+                        + (qbar if a == b else 0.0))
+    return torch.stack(cols, dim=1) * sqrt_eps

@@ -55,7 +55,7 @@ from .accel import (
     build_light_bins, build_light_records, build_screen_bins,
     gather_other_records, occluder_records, other_table,
 )
-from .camera import CameraParams, auto_camera, camera_frame
+from .camera import CameraParams, auto_camera, camera_frame, preset_camera
 from .config import RenderConfig, quantize
 from .gather import gather_chunk_data_banded
 from .geometry import bond_edges as _bond_edges
@@ -68,7 +68,8 @@ from .scene import build_scene
 from .tracer import render_image as render_image_exact
 from .tracer_tiled import render_image_pallas_banded, render_image_tiled
 
-__all__ = ["TachyonRender", "CameraParams", "build_ao_lights", "save_image"]
+__all__ = ["TachyonRender", "CameraParams", "preset_camera", "build_ao_lights",
+           "save_image", "load_image"]
 
 LIGHT_GRID = 32        # shadow grid cells per side, as the JAX renderer uses
 # bytes of (nb, nchunks, 8, 128) f32 candidate records one frame may gather
@@ -119,6 +120,14 @@ def save_image(path: str, img: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(img).save(path)
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image file as an (H, W, 4) uint8 RGBA array (the JAX renderer's
+    ``load_image``, ``mdapy_tpu/render/render.py:48-51``)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGBA"))
 
 
 def _default_colors(system) -> np.ndarray:

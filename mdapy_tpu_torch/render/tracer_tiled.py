@@ -59,12 +59,14 @@ import torch
 
 from . import megakernel as _mk
 from . import ieee, rng, tile_kernels
-from .accel import LightBins, ScreenBins, gather_other_records, other_table
+from .accel import (LightBins, ScreenBins, build_light_bins, build_screen_bins,
+                    gather_other_records, other_table)
 from .gather import gather_chunk_data
 from .megakernel import BIG, BIG_DEPTH, MINCONTRIB, OtherRecords
 
 __all__ = ["render_image_pallas", "render_image_pallas_banded",
-           "render_image_tiled", "band_bins", "band_other"]
+           "render_image_tiled", "band_bins", "band_other",
+           "build_screen_bins", "build_light_bins"]
 
 _SHADOW_WINDOW = 32      # candidates a lit ray tests per step of its walk
 AMBIENT, DIFFUSE_K = 0.3, 0.8

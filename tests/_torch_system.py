@@ -3,7 +3,8 @@ port's calculators, FIRE, ``AtomicStrain`` and ``WignerSeitzAnalysis`` read,
 with numpy and the port's ``Box`` only (no jax, no polars), shared by the
 CPU tests ``tests/test_torch_fire.py``, ``tests/test_torch_eam.py`` and
 ``tests/test_torch_analysis_dist.py`` and by ``chip_smoke.py`` [E1], [F1],
-[P1] and [S4].  The port's ``System`` facade is ROADMAP A12."""
+[P1] and [S4].  New code takes the port's ``System``
+(``mdapy_tpu_torch/core/system.py``, ROADMAP A12a) instead."""
 
 import numpy as np
 

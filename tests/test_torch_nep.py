@@ -7,8 +7,9 @@ function that carries the JAX package's parameters into the port), and a
 seeded, rattled Cu-Ni alloy gives the same energies, forces, virials,
 stress, descriptors and latent space from the JAX ``NEP`` (CPU, float64) and
 the port's (``device="cpu"``) at rtol = atol = 1e-9.  The port's forces on
-the CPU repeat bit for bit.  ``chip_smoke.py`` [P1] runs a NEP4 + ZBL model
-at GPUMD's default widths on the card.
+the CPU repeat bit for bit.  The charge models are
+``tests/test_torch_qnep.py``'s.  ``chip_smoke.py`` [P1] runs a NEP4 + ZBL
+model at GPUMD's default widths on the card.
 """
 
 import numpy as np
@@ -36,9 +37,8 @@ def models(tmp_path_factory):
     out = {k: write_nep(d / f"{k}.txt", **kw) for k, kw in MODELS.items()}
     out["flexible"] = write_nep(d / "flexible.txt", version=4, zbl="flexible",
                                 l_max=(4, 2, 0), seed=6, **SMALL)
-    out["charge"] = str(d / "charge.txt")
-    with open(out["charge"], "w") as f:
-        f.write("nep4_charge1 2 Cu Ni\n")
+    out["charge"] = write_nep(d / "charge.txt", version=4, charge_mode=1,
+                              l_max=(4, 2, 0), seed=8, **SMALL)
     return out
 
 
@@ -95,8 +95,8 @@ def test_forces_repeat_bit_for_bit(models):
 
 
 def test_unported_models_and_card_default(models):
-    with pytest.raises(NotImplementedError, match="qNEP"):
-        NEP(models["charge"], device="cpu")
+    # qNEP models are ported now (tests/test_torch_qnep.py holds them)
+    assert NEP(models["charge"], device="cpu").charge_mode == 1
     if torch.cuda.is_available():
         assert NEP(models["nep3"]).device.type == "cuda"
     else:

@@ -341,6 +341,12 @@ def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
 def test_port_imports_no_jax():
     code = (
         "import sys, numpy as np\n"
+        "class Block:\n"
+        "    # pandas, pyarrow and polars are absent on the card's machine\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('pandas', 'pyarrow', 'polars'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import mdapy_tpu_torch as m\n"
         "a = 3.615\n"
         "f = np.array([[0,0,0],[.5,.5,0],[.5,0,.5],[0,.5,.5]])\n"
@@ -417,7 +423,25 @@ def test_port_imports_no_jax():
         "assert q.qnarray.shape == (256, 4) and q.solidliquid.all()\n"
         "c = m.ClusterAnalysis(st.pos[::2], box, 2.9, device='cpu').compute()\n"
         "assert c.cluster_number >= 1 and c.particleClusters.min() == 1\n"
+        "s = m.System(pos=st.pos, box=np.eye(3) * 4 * a, "
+        "element_list=['Cu'] * 128 + ['Ni'] * 128, device='cpu')\n"
+        "for name, kw in (('a.dump', {}), ('a.xyz', {}), ('POSCAR', {}), "
+        "('a.data', {'data_format': 'charge'}), ('b.dump.gz', {})):\n"
+        "    p = os.path.join(tmp, name)\n"
+        "    m.save(p, s, **kw)\n"
+        "    r = m.load(p, device='cpu')\n"
+        "    assert r.N == 256\n"
+        "    assert np.abs(np.sort(r.pos, 0) - np.sort(s.pos, 0)).max() < 1e-9\n"
+        "assert (m.load(os.path.join(tmp, 'a.dump'), device='cpu')"
+        ".cal_common_neighbor_analysis() == 1).all()\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from _nep_file import write_nep\n"
+        "q = m.NEP(write_nep(os.path.join(tmp, 'q.txt'), elements=('Cu', 'Ni'), "
+        "cutoff=(5.0, 4.0), n_max=(3, 3), basis_size=(4, 4), neurons=8, "
+        "charge_mode=1), device='cpu')\n"
+        "assert q.get_bec(s).shape == (256, 9) and abs(q.get_charges(s).sum()) < 1e-9\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not {'pandas', 'pyarrow', 'polars'} & set(sys.modules)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
