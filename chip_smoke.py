@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port's main paths on one card: the
-renderer, the neighbor engine, the potentials, the structure analyses, and
-the System with its files and the qNEP charge models.
+renderer, the neighbor engine, the potentials, the structure analyses, the
+System with its files and the qNEP charge models, the crystal builders and
+the host analyses.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -244,8 +245,48 @@ Q1. qNEP on rock-salt NaCl, 12^3 conventional cells (13,824 atoms, a
     ``Spline.evaluate_torch`` on 10^7 points, orders 0-2, the card against
     the CPU within 1e-15 relative.
 
+The builders and the host analyses, after [Q1] (host seconds for the
+builders; each analysis call as in [S1]-[S4], float64, the card against the
+CPU on a cut, relative where FFT or trigonometry round differently):
+
+BL1. ``bench.py``'s scenes built by the port: ``CreatePolycrystal(
+    build_crystal("Cu", "fcc", 3.615), 230.0, 15, randomseed=1).compute()``
+    (``bench.py:279-281``) must give 1,030,194 atoms; again with
+    ``metal_overlap_dis=2.0`` (the overlap filter on the card; the atoms
+    removed, no pair left within 2 A); that first build rendered with
+    ``bench_config3``'s settings (1920x1080, AA 2, AO 12, white background,
+    the perspective preset, r 1.28): first frame, warm ms over 5 frames and
+    Grays/s counted as traced, W*H*(2S+K) (this is ``bench.py``'s scene,
+    not phase 4's ``voronoi_polycrystal``); ``build_hea`` of CoNiCrFeMn at
+    136^3 cells (``bench.py:368-371``) must give 10,061,824 atoms with
+    each element's count by ``build_hea_fromsystem``'s floor rule;
+    ``orthogonal_cell`` of a Miller-oriented HCP build.
+S5. S(k) on the perfect lattice of 32,000 atoms of CoNiCrFeMn (20^3
+    cells, a 3.59 A, seed 1): Debye at its defaults (rc = L/2, the RDF's
+    streaming route) with its 15 partials and the X-ray, neutron and
+    electron totals, the card against the CPU on 4,000 atoms both rattled
+    and perfect (pairs at exactly rc, ROADMAP C15); direct with partials,
+    k in (0.5, 12], its k-points, chunk and the float64 bound of its
+    phases and sums; Debye at rc 6 on 1,000,188 atoms (63^3 cells, the
+    neighbor route).  Warren-Cowley on those
+    1,000,188 atoms at rc 3.0, equal bit for bit to the CPU's count of
+    the same list, every |alpha| under 0.02.  ``AtomicTemperature`` at rc
+    5 on N1's block with seeded Maxwell velocities at 300 K (no net
+    momentum): mean within 5 % of 300 K; then ``SpatialBinning`` of that
+    block's temperatures by "xyz" at 5 A with every operation.
+    ``VoidAnalysis`` at rc 4.1 on 500,000 atoms of Al with three spheres
+    cut out (``tests/test_misc_fixtures.py:177-191``): 3 voids.
+    ``cal_chemical_species(["H2O"], scale=0.4, add_mol_id=True)`` on a
+    water box of 69^3 molecules (985,527 atoms, ``tests/_water_box.py``):
+    328,509 H2O, every mol_id 0.  ``MeanSquaredDisplacement`` on 1,000
+    frames x 32,000 atoms of a seeded random walk in both modes: window
+    equal to the mean over every origin at four lags within 1e-9 of max
+    |pos|^2, direct within 3 % of window (the walk's statistics).
+    ``LindemannParameter`` on 200 frames x 5,000 atoms, ``only_global``
+    and per atom, their ``lindemann_trj`` within 1e-12 relative.
+
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
-6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1 and Q1.  The
+6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1, Q1, BL1 and S5.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -1319,18 +1360,37 @@ def peak_of(fn):
     return torch.cuda.max_memory_allocated()
 
 
+# torch.profiler on the card's machine now and then keeps a call's host
+# events but none of its device records (seen on calls of a few kernels
+# after a long host stretch: MSD direct, Warren-Cowley); a retake may
+# catch them
+PROFILE_TRIES = 5
+
+
 def profile_call(fn, top: int = 6):
     """One call of ``fn`` under ``torch.profiler``: its device activities
     (kernel launches and copies), their summed device ms, and the ``top``
-    kernels by device time."""
+    kernels by device time.  Every call profiled runs on the card, so a
+    profile without device records failed: it is taken again, up to
+    PROFILE_TRIES times; if none records any, launches, copies and device
+    ms are None (printed as not measured), never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+        print(f"    torch.profiler recorded no device events (try "
+              f"{attempt + 1} of {PROFILE_TRIES})")
+    else:
+        return {"launches": None, "copies": None, "device_ms": None,
+                "top": []}
     kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     by_name = {}
     for e in kern:
@@ -1344,11 +1404,15 @@ def profile_call(fn, top: int = 6):
 def print_call(tag: str, what: str, ms: float, prof: dict, bound_ms: float,
                by: str, peak: int, card: str) -> dict:
     share = bound_ms / ms * 100
-    print(f"  {tag} {what}: {ms:.3f} ms (median), {prof['launches']} kernel "
-          f"launches + {prof['copies']} copies, device busy "
-          f"{prof['device_ms']:.3f} ms ({prof['device_ms'] / ms * 100:.1f} % of "
-          f"the call); bound {bound_ms:.4f} ms by {by}, share {share:.3f} %; "
-          f"peak {peak} B; {card}")
+    if prof["launches"] is None:
+        dev = (f"launches and device busy not measured (no device events in "
+               f"{PROFILE_TRIES} profiles)")
+    else:
+        dev = (f"{prof['launches']} kernel launches + {prof['copies']} copies, "
+               f"device busy {prof['device_ms']:.3f} ms "
+               f"({prof['device_ms'] / ms * 100:.1f} % of the call)")
+    print(f"  {tag} {what}: {ms:.3f} ms (median), {dev}; bound {bound_ms:.4f} "
+          f"ms by {by}, share {share:.3f} %; peak {peak} B; {card}")
     print(f"    top kernels (ms): {prof['top']}")
     return {"ms": ms, "launches": prof["launches"], "copies": prof["copies"],
             "device_ms": prof["device_ms"], "bound_ms": bound_ms,
@@ -1745,12 +1809,13 @@ def same_bits(a, b) -> bool:
 
 
 def analysis_call(tag: str, what: str, run, outputs, card: str, ops: float,
-                  nbytes: float) -> dict:
+                  nbytes: float, warm=None) -> dict:
     """``run()`` computes the analysis and returns it; ``outputs(obj)`` its
-    result arrays.  A warm-up call, 3 timed calls (the median; each must
-    repeat the warm-up's results bit for bit), then one call under
-    ``torch.profiler`` that also reads the peak."""
-    first = outputs(run())
+    result arrays.  A warm-up call (or ``warm``, the result of one made
+    before), 3 timed calls (the median; each must repeat the warm-up's
+    results bit for bit), then one call under ``torch.profiler`` that also
+    reads the peak."""
+    first = outputs(run() if warm is None else warm)
     times = []
     for _ in range(3):
         obj, t = sync_time(run)
@@ -1769,13 +1834,16 @@ def analysis_call(tag: str, what: str, run, outputs, card: str, ops: float,
     return out
 
 
-def card_against_cpu(tag: str, what: str, make, outputs) -> float:
+def card_against_cpu(tag: str, what: str, make, outputs, rtol=None,
+                     scale=None) -> float:
     """``make(device)`` on a cut of about 4,000 atoms, on the card and on
     the CPU: integer results equal, floats within TOL_CARD_CPU (nan and inf
-    in the same places)."""
+    in the same places), or, given ``rtol``, within ``rtol`` of the largest
+    |value| (or of ``scale``)."""
     got, want = outputs(make("cuda")), outputs(make("cpu"))
     err = 0.0
     for x, y in zip(got, want):
+        x, y = np.asarray(x), np.asarray(y)
         if x.shape != y.shape:
             fail(f"{tag} {what}: card {x.shape} against CPU {y.shape}")
         if x.dtype.kind != "f":
@@ -1787,11 +1855,22 @@ def card_against_cpu(tag: str, what: str, make, outputs) -> float:
             fail(f"{tag} {what}: the card and the CPU differ in finiteness")
         fin = np.isfinite(x)
         if fin.any():
-            err = max(err, float(np.abs(x[fin] - y[fin]).max()))
-    if err > TOL_CARD_CPU:
-        fail(f"{tag} {what}: the card and the CPU differ by {err}")
-    print(f"    card against the CPU ({what}, about 4,000 atoms): labels "
-          f"and counts equal, floats within {err:.3e}")
+            diff = float(np.abs(x[fin] - y[fin]).max())
+            if rtol is not None:
+                diff /= scale if scale is not None else max(
+                    1e-300, float(np.abs(y[fin]).max()))
+            err = max(err, diff)
+    if rtol is None:
+        if err > TOL_CARD_CPU:
+            fail(f"{tag} {what}: the card and the CPU differ by {err}")
+        print(f"    card against the CPU ({what}, about 4,000 atoms): labels "
+              f"and counts equal, floats within {err:.3e}")
+        return err
+    if err > rtol:
+        fail(f"{tag} {what}: the card and the CPU differ by {err:.3e} "
+             f"relative (limit {rtol:g})")
+    print(f"    card against the CPU ({what}): labels and counts equal, floats "
+          f"within {err:.3e} relative (limit {rtol:g})")
     return err
 
 
@@ -2461,6 +2540,544 @@ def system_phases(card: str) -> dict:
     out["Q1"] = qnep_phase(card, outdir)
     print(f"[Q1] {time.perf_counter() - t1:.1f} s")
     print(f"[IO1-Q1] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---- the builders and the host analyses (ROADMAP A12b, A12c) ------------
+
+POLY_BOX, POLY_GRAINS = 230.0, 15   # bench.py:279-281
+POLY_ATOMS = 1_030_194      # BENCH_r05.json, config3_atoms
+HEA_CELLS = 136             # bench.py:368-371: 10,061,824 atoms
+HEA_ELEMENTS = ("Co", "Ni", "Cr", "Fe", "Mn")
+SK_CELLS = 20               # S(k): 32,000 atoms of CoNiCrFeMn, a 3.59 A
+SK_HEA_CELLS = 63           # 1,000,188 atoms of the same HEA
+VOID_CELLS = 50             # 500,000 atoms of Al, three spheres cut out
+WATER_SIDE = 69             # 69^3 molecules, 985,527 atoms
+MSD_FRAMES, MSD_ATOMS = 1000, 32_000
+LIND_FRAMES, LIND_ATOMS = 200, 5_000
+TOL_SK_DEBYE = 1e-12        # relative to the largest |S(k)|, card against CPU
+TOL_SK_DIRECT = 1e-10       # trigonometry of phases up to ~10^3 rad
+TOL_MSD = 1e-9              # of max |pos|^2: cuFFT against the CPU's FFT
+TOL_MSD_STAT = 0.03         # direct (from frame 0) against window, relative
+TOL_LIND = 1e-12            # relative
+WCP_MAX = 0.02              # |alpha| of a random HEA at 1,000,188 atoms
+# float64 operations of one exponential of the direct S(k) that have a
+# fixed count: the phase (a 3-term dot, 5) and the two adds of its cosine
+# and sine into their sums.  The cosine and sine themselves are not counted
+# (their cost is a range reduction and a polynomial whose length the
+# argument decides), so the bound is below the least time of the work.
+OPS_EXP = 7
+OPS_FFT = 2.5               # a real-input FFT's 2.5 n log2 n
+
+
+def builder_phase(card: str) -> dict:
+    """[BL1] ``bench.py``'s scenes built by the port: config 3's polycrystal
+    (also with the overlap filter on the card), rendered once with
+    ``bench_config3``'s settings, config 5's HEA, and ``orthogonal_cell``."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch import TachyonRender, preset_camera
+    from mdapy_tpu_torch.render import megakernel
+
+    out = {}
+    print(f"[BL1] {card}: the builders at bench.py's sizes (host numpy; the "
+          "overlap filter on the card)")
+    unit = mt.build_crystal("Cu", "fcc", 3.615)
+    t0 = time.perf_counter()
+    poly = mt.CreatePolycrystal(unit, POLY_BOX, POLY_GRAINS,
+                                randomseed=1).compute()
+    t_poly = time.perf_counter() - t0
+    if poly.N != POLY_ATOMS:
+        fail(f"[BL1] the polycrystal has {poly.N} atoms, not {POLY_ATOMS}")
+    print(f"  CreatePolycrystal(build_crystal('Cu', 'fcc', 3.615), 230.0, 15, "
+          f"randomseed=1): {poly.N} atoms (bench.py's config 3), "
+          f"{t_poly:.2f} s on the host")
+    t0 = time.perf_counter()
+    pc = mt.CreatePolycrystal(unit, POLY_BOX, POLY_GRAINS, randomseed=1,
+                              metal_overlap_dis=2.0)
+    filtered = pc.compute(verbose=False)
+    t_filt = time.perf_counter() - t0
+    grain = np.asarray(poly.data["grain_id"])
+    types = np.asarray(poly.data["type"])
+    keep_ms, keep = median_ms(
+        lambda: pc._filter_overlaps(poly.pos, types, grain), 3)
+    removed = poly.N - filtered.N
+    v = mt.Neighbor(filtered.pos, filtered.box, 2.0).compute().verlet_list
+    if removed <= 0 or int((v >= 0).sum()) != 0:
+        fail(f"[BL1] the overlap filter removed {removed} atoms and left "
+             f"{int((v >= 0).sum())} pairs within 2.0 A")
+    print(f"  with metal_overlap_dis=2.0: {filtered.N} atoms, {removed} removed "
+          f"({removed / poly.N * 100:.3f} %), no pair left within 2.0 A; "
+          f"{t_filt:.2f} s in all, the filter on the card {keep_ms:.3f} ms "
+          f"(median of 3, neighbor build included; {int((~keep).sum())} removed "
+          f"from the wrapped build); {card}")
+    out["polycrystal"] = {"atoms": poly.N, "build_s": t_poly,
+                          "filtered_atoms": filtered.N, "removed": removed,
+                          "filtered_build_s": t_filt, "filter_ms": keep_ms}
+
+    pos = np.ascontiguousarray(poly.pos)
+    colors = np.tile(np.array([[0.78, 0.5, 0.2, 1.0]], np.float32), (poly.N, 1))
+    radii = np.full(poly.N, 1.28, np.float32)
+    cam = preset_camera("perspective", pos, max_radius=1.28)
+    width, height, AA, K = 1920, 1080, 2, 12
+    S = AA + 1
+    ren = TachyonRender(backend="cuda", ao=True, ao_samples=K, aa_samples=AA,
+                        background=(1.0, 1.0, 1.0))
+
+    def frame():
+        return ren.render(pos, colors, radii, camera=cam, width=width,
+                          height=height, device_output=True)
+
+    megakernel.reset_launches()
+    img, t_first = sync_time(frame)
+    img, t_warm = sync_time(lambda: [frame() for _ in range(WARM_FRAMES)][-1])
+    t_warm /= WARM_FRAMES
+    launches = megakernel.launches
+    rays = width * height * (2 * S + K)
+    if launches < 1 + WARM_FRAMES or not float(img.float().std()) > 1:
+        fail(f"[BL1] the config 3 frame launched the kernel {launches} times "
+             "or is flat")
+    print(f"  bench.py's config 3 scene (this build, not phase 4's "
+          f"voronoi_polycrystal), {width}x{height} S={S} shadows + AO {K}: "
+          f"first frame {t_first * 1e3:.1f} ms, warm {t_warm * 1e3:.3f} "
+          f"ms/frame over {WARM_FRAMES} frames, {rays / t_warm / 1e9:.4f} "
+          f"Grays/s by the rays traced W*H*(2S+K), {launches} kernel "
+          f"launches; {card}")
+    out["config3_frame"] = {"first_ms": t_first * 1e3, "warm_ms": t_warm * 1e3,
+                            "grays_per_s": rays / t_warm / 1e9,
+                            "launches": launches}
+    del ren, img, poly, filtered, pc
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hea = mt.build_hea(HEA_ELEMENTS, (0.2,) * 5, "fcc", 3.59, nx=HEA_CELLS,
+                       ny=HEA_CELLS, nz=HEA_CELLS, random_seed=1)
+    t_hea = time.perf_counter() - t0
+    n = hea.N
+    want = np.floor(n * np.full(5, 0.2)).astype(int)
+    want[-1] = n - want[:-1].sum()
+    elems = np.asarray(hea.data["element"]).astype(str)
+    got = np.array([int((elems == e).sum()) for e in HEA_ELEMENTS])
+    if n != 4 * HEA_CELLS ** 3 or not np.array_equal(got, want) or not \
+            np.array_equal(np.asarray(hea.data["type"]), _type_of(elems)):
+        fail(f"[BL1] the HEA has {n} atoms and counts {got.tolist()}")
+    print(f"  build_hea({HEA_ELEMENTS}, 0.2 each, 'fcc', 3.59, "
+          f"{HEA_CELLS}^3 cells, random_seed=1): {n} atoms (bench.py's config "
+          f"5), counts {dict(zip(HEA_ELEMENTS, got.tolist()))} as the floor "
+          f"rule gives them, {t_hea:.2f} s on the host")
+    out["hea"] = {"atoms": n, "build_s": t_hea, "counts": got.tolist()}
+    del hea, elems
+
+    t0 = time.perf_counter()
+    hcp = mt.build_crystal("Co", "hcp", 2.507, miller1=(1, 0, -1, 0),
+                           miller2=(1, 1, -2, 0), miller3=(0, 0, 0, 1),
+                           c=4.07, nx=4, ny=4, nz=4)
+    ortho = mt.orthogonal_cell(hcp)
+    t_ortho = time.perf_counter() - t0
+    m = ortho.box.matrix
+    dens = (hcp.N / abs(np.linalg.det(hcp.box.matrix)),
+            ortho.N / abs(np.linalg.det(m)))
+    if np.abs(m - np.diag(np.diag(m))).max() > 1e-9 or \
+            abs(dens[0] - dens[1]) > 1e-9 * dens[0]:
+        fail(f"[BL1] orthogonal_cell gave the box {m.tolist()}")
+    print(f"  orthogonal_cell of a Miller-oriented HCP Co build "
+          f"({hcp.N} atoms, triclinic {hcp.box.triclinic}): {ortho.N} atoms, "
+          f"box diagonal {np.diag(m).round(6).tolist()}, the density kept; "
+          f"{t_ortho:.3f} s on the host")
+    out["orthogonal_cell"] = {"atoms_in": hcp.N, "atoms_out": ortho.N,
+                              "s": t_ortho}
+    return out
+
+
+def _type_of(elems):
+    """1-based index of each element in HEA_ELEMENTS."""
+    lut = {e: i + 1 for i, e in enumerate(HEA_ELEMENTS)}
+    uniq, inv = np.unique(elems, return_inverse=True)
+    return np.array([lut[e] for e in uniq], np.int32)[inv]
+
+
+def _maxwell(n: int, mass: float, temp: float, seed: int) -> np.ndarray:
+    """Maxwell velocities in A/fs at ``temp`` K, the net momentum removed."""
+    kb, amu = 1.380649e-23, 1.0 / 6.022140857e23 / 1000.0
+    sigma = np.sqrt(kb * temp / (mass * amu)) * 1e-5
+    vel = np.random.default_rng(seed).normal(0.0, sigma, (n, 3))
+    return vel - vel.mean(axis=0)
+
+
+def _rattled(pos, seed: int, sigma: float = 0.05):
+    return pos + np.random.default_rng(seed).normal(0.0, sigma, pos.shape)
+
+
+def structure_factor_phase(card: str) -> dict:
+    """[S5] S(k): Debye at its defaults and direct with partials on 32,000
+    atoms of CoNiCrFeMn; Debye at rc 6 on 1,000,188 atoms."""
+    import mdapy_tpu_torch as mt
+
+    out = {}
+    hea = mt.build_hea(HEA_ELEMENTS, (0.2,) * 5, "fcc", 3.59, nx=SK_CELLS,
+                       ny=SK_CELLS, nz=SK_CELLS, random_seed=1)
+    pos, box = hea.pos, hea.box
+    el = np.asarray(hea.data["element"]).astype(str)
+    n = hea.N
+    cut = mt.build_hea(HEA_ELEMENTS, (0.2,) * 5, "fcc", 3.59, nx=10, ny=10,
+                       nz=10, random_seed=2, device="cpu")
+    cpos, cel = _rattled(cut.pos, 22), np.asarray(cut.data["element"]).astype(str)
+
+    def sk_out(o):
+        return (o.Sk,) + tuple(o.Sk_partial[k] for k in sorted(o.Sk_partial))
+
+    print(f"[S5] {card}: S(k) on {n} atoms of CoNiCrFeMn (a 3.59 A, seed 1), "
+          "float64")
+    run = lambda: mt.StructureFactor(pos, box, cal_partial=True,  # noqa: E731
+                                     elements=el).compute()
+    s = run()
+    L = float(box.matrix[0, 0])
+    totals = [getattr(s, f"get_{k}_structure_factor")() for k in
+              ("xray", "neutron", "electron")]
+    if len(s.Sk_partial) != 15 or not all(np.isfinite(x).all() for x in
+                                          [s.Sk] + totals):
+        fail(f"[S5] Debye S(k): {len(s.Sk_partial)} partials, or not finite")
+    print(f"    Debye, rc = L/2 = {L / 2:.3f} A (the RDF's streaming route), "
+          f"{len(s.Sk_partial)} partials; S(k) at k = 3.0: "
+          f"{float(np.interp(3.0, s.k, s.Sk)):.6f}; X-ray, neutron and "
+          f"electron totals finite")
+    pairs = n * (n - 1) // 2
+    out["debye"] = analysis_call(
+        "[S5]", "StructureFactor(debye, cal_partial=True), rc = L/2", run,
+        sk_out, card, pairs * OPS_PAIR, n * 24, warm=s)
+    card_against_cpu("[S5]", "Debye S(k) and its partials, 4,000 atoms",
+                         lambda d: mt.StructureFactor(cpos, cut.box,
+                                                      cal_partial=True,
+                                                      elements=cel,
+                                                      device=d).compute(),
+                         sk_out, TOL_SK_DEBYE)
+    # the perfect lattice at rc = L/2 puts pair distances exactly at rc and
+    # on bin edges: the card and the CPU sum each squared norm in one
+    # written order, so each pair falls on the same side on both (the JAX
+    # package's fused sum may put it on the other, C15)
+    card_against_cpu("[S5]", "Debye S(k) and its partials at rc = L/2 on the "
+                     "perfect 4,000-atom lattice (C15)",
+                     lambda d: mt.StructureFactor(cut.pos, cut.box,
+                                                  cal_partial=True,
+                                                  elements=cel,
+                                                  device=d).compute(),
+                     sk_out, TOL_SK_DEBYE)
+
+    run = lambda: mt.StructureFactor(pos, box, cal_partial=True,  # noqa: E731
+                                     elements=el, mode="direct").compute()
+    s = run()
+    nk = s.k_point_number
+    exps = nk * n
+    b_ms, by = f64_bound(exps * OPS_EXP, nk * 24 + n * 24)
+    if len(s.Sk_partial) != 15 or not np.isfinite(s.Sk).any():
+        fail("[S5] direct S(k) is wrong")
+    print(f"    direct, k in ({s.k_min}, {s.k_max}]: {nk} k-points in chunks "
+          f"of {s.chunk_rows}, {exps:.4e} complex exponentials (cos and sin); "
+          f"the float64 bound of their phases and sums (cos and sin not "
+          f"counted) {b_ms:.3f} ms by {by}")
+    out["direct"] = analysis_call(
+        "[S5]", f"StructureFactor(direct, cal_partial=True), {nk} k-points",
+        run, sk_out, card, exps * OPS_EXP, nk * 24 + n * 24, warm=s)
+    out["direct"].update(k_points=nk, chunk_rows=s.chunk_rows,
+                         exponentials=exps)
+    card_against_cpu("[S5]", "direct S(k) and its partials, 4,000 atoms, "
+                         "k_max 6", lambda d: mt.StructureFactor(
+                             cpos, cut.box, cal_partial=True, elements=cel,
+                             mode="direct", k_max=6.0, device=d).compute(),
+                         sk_out, TOL_SK_DIRECT)
+    del s
+    torch.cuda.empty_cache()
+
+    big = mt.build_hea(HEA_ELEMENTS, (0.2,) * 5, "fcc", 3.59, nx=SK_HEA_CELLS,
+                       ny=SK_HEA_CELLS, nz=SK_HEA_CELLS, random_seed=1)
+    bpos, bel, nb = (big.pos, np.asarray(big.data["element"]).astype(str),
+                     big.N)
+    run = lambda: mt.StructureFactor(bpos, big.box, rc=6.0,  # noqa: E731
+                                     elements=bel).compute()
+    s = run()
+    if not np.isfinite(s.Sk).all():
+        fail("[S5] Debye S(k) at rc 6 is not finite")
+    out["debye_1m"] = analysis_call(
+        "[S5]", f"StructureFactor(debye, rc 6) on {nb} atoms (neighbor route)",
+        run, lambda o: (o.Sk,), card, nb * 78 // 2 * OPS_PAIR,
+        nb * (24 + 78 * 12),
+        warm=s)
+    return out, big
+
+
+def hea_phase(card: str, big) -> dict:
+    """[S5] Warren-Cowley on the 1,000,188-atom HEA at rc 3.0."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_search
+
+    out = {}
+    el = np.asarray(big.data["element"]).astype(str)
+    types = np.asarray(big.data["type"])
+    v, d, nn = neighbor_search(big.pos, big.box, 3.0)
+    run = lambda: mt.WarrenCowleyParameter(types, v, nn,  # noqa: E731
+                                           elements=el).compute()
+    w = run()
+    cpu = mt.WarrenCowleyParameter(types, v, nn, elements=el,
+                                   device="cpu").compute()
+    if w.WCP.tobytes() != cpu.WCP.tobytes():
+        fail("[S5] Warren-Cowley: the card's matrix differs from the CPU's")
+    if not np.abs(w.WCP).max() < WCP_MAX:
+        fail(f"[S5] Warren-Cowley of a random HEA: max |alpha| "
+             f"{np.abs(w.WCP).max()}")
+    print(f"    WarrenCowleyParameter on {big.N} atoms at rc 3.0 "
+          f"({int((v >= 0).sum())} pairs): max |alpha| "
+          f"{np.abs(w.WCP).max():.5f}; equal bit for bit to the CPU's count "
+          "of the same list")
+    out["warren_cowley"] = analysis_call(
+        "[S5]", "WarrenCowleyParameter (integer pair counts), rc 3.0", run,
+        lambda o: (o.WCP,), card, 0, v.size * 4 + big.N * 8, warm=w)
+    return out
+
+
+def temperature_phase(card: str) -> dict:
+    """[S5] Atomic temperature and spatial binning on N1's block."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.core.elements import atomic_masses, atomic_numbers
+    from mdapy_tpu_torch.neighbor.neighbor import neighbor_tensors
+
+    out = {}
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS)
+    n = len(pos)
+    mass = float(atomic_masses[atomic_numbers["Cu"]])
+    vel = _maxwell(n, mass, 300.0, 31)
+    s = mt.System(pos=pos, box=box, element_list=np.full(n, "Cu", object))
+    s.update_data(s.data.with_columns(vx=vel[:, 0], vy=vel[:, 1], vz=vel[:, 2]))
+    temp = s.cal_atomic_temperature(5.0)
+    mean_t = float(temp.mean())
+    if not abs(mean_t - 300.0) / 300.0 < 0.05 or not (temp > 0).all():
+        fail(f"[S5] atomic temperature: mean {mean_t} K for 300 K")
+    verlet, dist, cnt = neighbor_tensors(pos, box, 5.0)
+    amass = np.full(n, mass)
+    run = lambda: mt.AtomicTemperature(amass, vel * 1e3, verlet,  # noqa: E731
+                                       cnt).compute()
+    if not same_bits((run().T,), (temp,)):
+        fail("[S5] atomic temperature: the System's column differs from the "
+             "direct call")
+    M = verlet.shape[1]
+    print(f"    AtomicTemperature on {n} atoms (Maxwell 300 K, seed 31, no net "
+          f"momentum), rc 5, {M} columns: mean {mean_t:.3f} K; "
+          "System.cal_atomic_temperature equal bit for bit")
+    out["atomic_temperature"] = analysis_call(
+        "[S5]", "AtomicTemperature, rc 5", run, lambda o: (o.T,), card,
+        n * M * 40, n * (M * 4 + 32))
+    cut, cbox, _ = fcc_system(CUT_CELLS, rattle=0.05, seed=32)
+    cvel = _maxwell(len(cut), mass, 300.0, 33)
+
+    def cut_temp(d):
+        v, _, c = neighbor_tensors(cut, cbox, 5.0, device=d)
+        return mt.AtomicTemperature(np.full(len(cut), mass), cvel * 1e3, v, c,
+                                    device=d).compute()
+
+    card_against_cpu("[S5]", "atomic temperature", cut_temp, lambda o: (o.T,))
+    del verlet, dist, cnt
+
+    data = s.data
+    ops = ["mean", "sum", "count", "min", "max", "sum/binvol"]
+    run = lambda: mt.SpatialBinning(data, box, "xyz", 5.0).compute(  # noqa: E731
+        ["atomic_temp"] * 6, ops)
+    b = run()
+    res = b.result
+    if int(res["atomic_temp_count"].sum()) != n or not np.allclose(
+            res["atomic_temp_sum"].sum(), temp.sum(), rtol=1e-12):
+        fail("[S5] spatial binning lost atoms or temperature")
+    print(f"    SpatialBinning 'xyz' at 5 A: {res['atomic_temp_count'].size} "
+          f"bins, every operation ({', '.join(ops)})")
+    out["spatial_binning"] = analysis_call(
+        "[S5]", "SpatialBinning('xyz', 5 A), 6 operations", run,
+        lambda o: tuple(o.result[f"atomic_temp_{k}"] for k in ops), card, 0,
+        n * (24 + 8) + res["atomic_temp_count"].size * 8 * 6, warm=b)
+    card_against_cpu("[S5]", "spatial binning", lambda d: mt.SpatialBinning(
+        {"x": cut[:, 0], "y": cut[:, 1], "z": cut[:, 2],
+         "t": np.linspace(0.0, 1.0, len(cut))}, cbox, "xyz", 5.0,
+        device=d).compute(["t"] * 6, ops),
+        lambda o: tuple(o.result[f"t_{k}"] for k in ops))
+    return out
+
+
+def _holes(pkg_build, cells: int, spheres, device="cuda"):
+    """An Al block with spherical holes: ((x, y, z), r^2) each."""
+    fcc = pkg_build("Al", "fcc", 4.05, nx=cells, ny=cells, nz=cells,
+                    device=device)
+    p = fcc.pos
+    keep = np.ones(len(p), bool)
+    for c, r2 in spheres:
+        keep &= ((p - np.array(c)) ** 2).sum(axis=1) > r2
+    fcc.update_data(fcc.data.filter(keep))
+    return fcc
+
+
+def void_species_phase(card: str) -> dict:
+    """[S5] Voids in a 500,000-atom Al block; chemical species of a water
+    box of 69^3 molecules."""
+    import mdapy_tpu_torch as mt
+    from _water_box import water_box
+
+    out = {}
+    spheres = (((50, 50, 50), 100), ((100, 100, 100), 100),
+               ((150, 150, 150), 400))      # tests/test_misc_fixtures.py:177-191
+    block = _holes(mt.build_crystal, VOID_CELLS, spheres)
+    run = lambda: mt.VoidAnalysis(block, 4.1).compute()  # noqa: E731
+    v = run()
+    if v.void_number != 3:
+        fail(f"[S5] voids: {v.void_number} found, not 3")
+    print(f"    VoidAnalysis on {block.N} atoms of Al, three spheres cut out, "
+          f"rc 4.1: {v.void_number} voids, volume {v.void_volume:.1f} A^3, "
+          f"{len(v.void_labels)} empty cells")
+    out["void"] = analysis_call(
+        "[S5]", "VoidAnalysis(rc 4.1)", run,
+        lambda o: (o.void_labels, np.array([o.void_volume])), card, 0,
+        block.N * 24, warm=v)
+    card_against_cpu("[S5]", "void labels", lambda d: mt.VoidAnalysis(
+        _holes(mt.build_crystal, 10, (((10, 10, 10), 36), ((30, 30, 30), 30)),
+               device=d), 4.1, device=d).compute(),
+        lambda o: (o.void_labels,))
+
+    wpos, wel, wl = water_box(WATER_SIDE, 3.1, 34)
+    water = mt.System(pos=wpos, box=np.eye(3) * wl, element_list=wel)
+    t0 = time.perf_counter()
+    res = water.cal_chemical_species(["H2O"], scale=0.4, add_mol_id=True)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    mol_id = np.asarray(water.data["mol_id"])
+    if res != {"H2O": WATER_SIDE ** 3} or not (mol_id == 0).all():
+        fail(f"[S5] chemical species of the water box: {res}")
+    print(f"    cal_chemical_species(['H2O'], scale=0.4, add_mol_id=True) on "
+          f"{water.N} atoms of water: {res}, every mol_id 0; first call "
+          f"{t_cold * 1e3:.1f} ms (its neighbor build included)")
+
+    def species():
+        r = water.cal_chemical_species(["H2O"], scale=0.4, add_mol_id=True)
+        if r != res:
+            fail(f"[S5] a repeat of the species count gave {r}")
+        return water
+
+    M = water.verlet_list.shape[1]
+    out["chemical_species"] = analysis_call(
+        "[S5]", "System.cal_chemical_species (the list cached), "
+        f"{WATER_SIDE ** 3:,} molecules", species, lambda o: (np.asarray(o.data["mol_id"]),), card,
+        0, water.N * (M * 12 + 16))
+    out["chemical_species"]["first_call_ms"] = t_cold * 1e3
+
+    def small_water(d):
+        p, e, side = water_box(11, 3.1, 35)
+        keep = np.setdiff1d(np.arange(len(p)), [5, 8, 30])
+        s = mt.System(pos=p[keep], box=np.eye(3) * side, element_list=e[keep],
+                      device=d)
+        s.result = s.cal_chemical_species(scale=0.4)
+        s.result_mid = s.cal_chemical_species(["H2O", "HO"], scale=0.4,
+                                              add_mol_id=True)
+        return s
+
+    a, b = small_water("cuda"), small_water("cpu")
+    if list(a.result.items()) != list(b.result.items()) or \
+            a.result_mid != b.result_mid or \
+            not np.array_equal(a.data["mol_id"], b.data["mol_id"]):
+        fail("[S5] chemical species: the card differs from the CPU")
+    print(f"    card against the CPU (3,990 atoms of water with fragments): "
+          f"{a.result} and mol_id equal")
+    return out
+
+
+def trajectory_phase(card: str) -> dict:
+    """[S5] MSD (1,000 frames x 32,000 atoms) and Lindemann (200 x 5,000)."""
+    import mdapy_tpu_torch as mt
+
+    out = {}
+    rng = np.random.default_rng(36)
+    walk = rng.random((1, MSD_ATOMS, 3)) * 50.0 + np.cumsum(
+        rng.normal(0.0, 0.1, (MSD_FRAMES, MSD_ATOMS, 3)), axis=0)
+    scale = float(np.abs(walk).max()) ** 2
+    nfft = 1 << (2 * MSD_FRAMES - 1).bit_length()
+    run = lambda: mt.MeanSquaredDisplacement(walk, "window").compute()  # noqa: E731
+    w = run()
+    err = 0.0
+    wt = torch.as_tensor(walk, device=w.device)
+    lags = (1, 10, MSD_FRAMES // 10, MSD_FRAMES - 1)
+    for lag in lags:
+        ref = ((wt[lag:] - wt[:-lag]) ** 2).sum(dim=2).mean(dim=0).cpu().numpy()
+        err = max(err, float(np.abs(w.particle_msd[lag] - ref).max()) / scale)
+    del wt
+    if err > TOL_MSD:
+        fail(f"[S5] MSD window mode against the mean over origins: {err:.3e}")
+    d = mt.MeanSquaredDisplacement(walk, "direct").compute()
+    stat = float(np.abs(d.msd[1:] - w.msd[1:]).max() / w.msd[1:].max())
+    rel = float(np.max(np.abs(d.msd[1:] - w.msd[1:]) / w.msd[1:]))
+    if rel > TOL_MSD_STAT:
+        fail(f"[S5] MSD direct against window: {rel:.3e} relative")
+    print(f"    MeanSquaredDisplacement, {MSD_FRAMES} frames x {MSD_ATOMS} atoms "
+          f"(a random walk, seed 36): window equal to the mean over all origins "
+          f"at lags {lags} within {err:.3e} of max |pos|^2 "
+          f"(limit {TOL_MSD:g}); direct (from frame 0) against window within "
+          f"{rel:.4f} relative at every lag (statistics, limit {TOL_MSD_STAT}), "
+          f"{stat:.3e} of the largest")
+    series = MSD_ATOMS * 3
+    out["msd_window"] = analysis_call(
+        "[S5]", f"MeanSquaredDisplacement(window), FFT length {nfft}", run,
+        lambda o: (o.particle_msd,), card,
+        series * 2 * OPS_FFT * nfft * math.log2(nfft),
+        walk.nbytes + MSD_FRAMES * MSD_ATOMS * 8, warm=w)
+    out["msd_direct"] = analysis_call(
+        "[S5]", "MeanSquaredDisplacement(direct)",
+        lambda: mt.MeanSquaredDisplacement(walk, "direct").compute(),
+        lambda o: (o.particle_msd,), card, walk.size * 3,
+        walk.nbytes + MSD_FRAMES * MSD_ATOMS * 8)
+    cut = walk[:100, :500]
+    card_against_cpu("[S5]", "MSD window, 100 frames x 500 atoms",
+                         lambda dv: mt.MeanSquaredDisplacement(
+                             cut, "window", device=dv).compute(),
+                         lambda o: (o.particle_msd,), TOL_MSD,
+                         float(np.abs(cut).max()) ** 2)
+    del walk, w, d
+
+    lind = rng.random((1, LIND_ATOMS, 3)) * 40.0 + rng.normal(
+        0.0, 0.2, (LIND_FRAMES, LIND_ATOMS, 3))
+    g = mt.LindemannParameter(lind, only_global=True).compute()
+    a = mt.LindemannParameter(lind).compute()
+    if abs(g.lindemann_trj - a.lindemann_trj) > TOL_LIND * a.lindemann_trj:
+        fail(f"[S5] Lindemann: only_global {g.lindemann_trj} against per atom "
+             f"{a.lindemann_trj}")
+    print(f"    LindemannParameter, {LIND_FRAMES} frames x {LIND_ATOMS} atoms: "
+          f"lindemann_trj {a.lindemann_trj:.9f}, only_global and per atom "
+          f"within {abs(g.lindemann_trj - a.lindemann_trj):.3e}")
+    pairs = LIND_FRAMES * LIND_ATOMS * LIND_ATOMS
+    for key, og in (("lindemann_global", True), ("lindemann_atom", False)):
+        out[key] = analysis_call(
+            "[S5]", f"LindemannParameter(only_global={og})",
+            lambda og=og: mt.LindemannParameter(lind, only_global=og).compute(),
+            lambda o: (o.lindemann_frame,) + (() if o.lindemann_atom is None
+                                              else (o.lindemann_atom,)),
+            card, pairs * 25, lind.nbytes)
+    card_against_cpu("[S5]", "Lindemann, 50 frames x 400 atoms",
+                         lambda dv: mt.LindemannParameter(
+                             lind[:50, :400], device=dv).compute(),
+                         lambda o: (o.lindemann_frame, o.lindemann_atom),
+                         TOL_LIND)
+    return out
+
+
+def host_analysis_phases(card: str) -> dict:
+    """[BL1] and [S5], after [Q1]."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # _water_box
+    t0 = time.perf_counter()
+    out = {"BL1": builder_phase(card)}
+    torch.cuda.empty_cache()
+    print(f"[BL1] {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    sk, big = structure_factor_phase(card)
+    out["S5"] = sk
+    out["S5"].update(hea_phase(card, big))
+    del big
+    torch.cuda.empty_cache()
+    for phase in (temperature_phase, void_species_phase, trajectory_phase):
+        out["S5"].update(phase(card))
+        torch.cuda.empty_cache()
+    print(f"[S5] {time.perf_counter() - t1:.1f} s")
+    print(f"[BL1-S5] {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3445,6 +4062,8 @@ def main() -> None:
     print(json.dumps({"analyses": analyses}))
     system = system_phases(card)
     print(json.dumps({"system": system}))
+    host = host_analysis_phases(card)
+    print(json.dumps({"host": host}))
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",
@@ -3453,7 +4072,8 @@ def main() -> None:
         "replaces": "mdapy_tpu/render/megakernel.py:156",
         "launches": (launches + ao_launches + box_launches + c2_launches
                      + t1_launches + t2_launches + t3_launches
-                     + b1f["launches"]),
+                     + b1f["launches"] + host["BL1"]["config3_frame"]["launches"]),
+        "bl1_launches": host["BL1"]["config3_frame"]["launches"],
         "max_abs_err": max(errs + peel_errs),
         "ms": b_head["ms"],
         "plain_ms": b_head["plain_ms"],

@@ -18,7 +18,13 @@ reference it is tested against.  Ported so far, for one card:
 * the qNEP charge models (``nep4_charge1/2/3``, with their Ewald sums and
   Born effective charges) and ``Spline``;
 * ``System`` with its file I/O (dump, XYZ, POSCAR, LAMMPS data, mp; the
-  native table parser built with g++ at first use) and trajectories.
+  native table parser built with g++ at first use) and trajectories;
+* the crystal builders (``build_crystal``, ``build_hea``,
+  ``orthogonal_cell``, ``CreatePolycrystal``), host numpy copies whose
+  overlap filter runs on the device;
+* the host analyses: structure factor, Warren-Cowley, atomic temperature,
+  MSD, Lindemann, spatial binning and voids, in float64 torch ops, and
+  ``System.cal_chemical_species``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or ``backend="cpu"`` for the renderer).  This package
@@ -71,6 +77,18 @@ _LAZY = {
     "Spline": (".utils.spline", "Spline"),
     "get_num_threads": (".utils.parallel", "get_num_threads"),
     "CalculatorMP": (".potentials.calculator", "CalculatorMP"),
+    "AtomicTemperature": (".analysis.atomic_temperature", "AtomicTemperature"),
+    "WarrenCowleyParameter": (".analysis.warren_cowley_parameter", "WarrenCowleyParameter"),
+    "MeanSquaredDisplacement": (".analysis.mean_squared_displacement", "MeanSquaredDisplacement"),
+    "LindemannParameter": (".analysis.lindemann_parameter", "LindemannParameter"),
+    "VoidAnalysis": (".analysis.void_analysis", "VoidAnalysis"),
+    "StructureFactor": (".analysis.structure_factor", "StructureFactor"),
+    "SpatialBinning": (".analysis.spatial_binning", "SpatialBinning"),
+    "build_crystal": (".build.lattice", "build_crystal"),
+    "build_hea": (".build.lattice", "build_hea"),
+    "LatticeRegistry": (".build.lattice", "LatticeRegistry"),
+    "CreatePolycrystal": (".build.polycrystal", "CreatePolycrystal"),
+    "orthogonal_cell": (".build.orthogonal_cell", "orthogonal_cell"),
 }
 
 __all__ = sorted(_LAZY)

@@ -161,7 +161,13 @@ def _stream_bin(pos, pos_all, type_idx, type_all, matrix, inv, boundary,
     """Blocked all-pairs (centre block x the whole image set) binning: the
     Verlet route's counts over an exact list, with an O(block x N) working
     set.  Self-pairs (zero distance at the identity image) are excluded;
-    periodic self-images within rc count, as the replicated list does."""
+    periodic self-images within rc count, as the replicated list does.  The
+    squared norm is summed in the written order, each term its own op, so
+    the card and the CPU give every distance of an orthogonal box bit for
+    bit, and a perfect lattice's pairs at exactly rc (rc = L/2 in Debye
+    S(k)) or on a bin edge fall on the same side on both; the JAX package's
+    jit fuses the sum into FMAs and may put them on the other (ROADMAP
+    C15)."""
     n, n_all = pos.shape[0], pos_all.shape[0]
     dr = rc / nbin
     sentinel = ntype * ntype * nbin
@@ -169,7 +175,8 @@ def _stream_bin(pos, pos_all, type_idx, type_all, matrix, inv, boundary,
     for s, e in row_chunks(n, n_all * 8 * 16):
         disp = min_image(pos_all[None, :, :] - pos[s:e, None, :], matrix, inv,
                          boundary)
-        dist = torch.sqrt(torch.sum(disp * disp, dim=-1))
+        x, y, z = disp.unbind(-1)
+        dist = torch.sqrt((x * x + y * y) + z * z)
         ok = (dist < rc) & (dist > 0.0)
         k = torch.clamp((dist / dr).to(torch.int32), 0, nbin - 1)
         flat = (type_idx[s:e, None].long() * ntype + type_all[None, :]) * nbin + k

@@ -15,9 +15,13 @@ unless ``device="cpu"``), and every neighbor build and analysis it starts
 runs there.  Each ``cal_*`` whose analysis is ported calls the port's class
 on the system's device and stores its columns as the JAX package does; the
 rest raise ``NotImplementedError`` naming the ROADMAP step that ports them:
-PTM with the planar faults, Voronoi (A12d); structure factor,
-Warren-Cowley, atomic temperature, voids, chemical species (A12c);
-``set_pka`` (A12e).
+PTM with the planar faults, Voronoi (A12d); ``set_pka`` (A12e).
+
+``cal_chemical_species`` gives the JAX method's dict, formulas,
+``most_common`` order and ``mol_id`` from a grouped count (the labels
+sorted once, (label, element) pairs counted by an integer ``bincount``, one
+formula string a distinct composition), where the JAX method visits every
+atom once a molecule (``mdapy_tpu/core/system.py:948-955``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 
 from .box import Box, init_box
 from .device import resolve_device
+from .elements import atomic_masses, atomic_numbers, symbols_to_numbers, vdw_radii
 from .frame import AtomFrame
 
 __all__ = ["System"]
@@ -699,12 +704,37 @@ class System:
     def cal_atomic_temperature(
         self, rc: float = 5.0, factor: float = 1.0, max_neigh: Optional[int] = None
     ) -> np.ndarray:
-        _not_ported("atomic temperature", "A12c")
+        from ..analysis.atomic_temperature import AtomicTemperature
+
+        verlet, dist, nn = self._nlist(rc, max_neigh)
+        if self.vel is None:
+            raise ValueError("Atomic temperature requires vx/vy/vz columns")
+        if "element" in self._data:
+            uniq, inv = np.unique(np.asarray(self._data["element"]).astype(str),
+                                  return_inverse=True)
+            amass = np.array([atomic_masses[atomic_numbers[e]] for e in uniq])[inv]
+        else:
+            raise ValueError("Atomic temperature requires an element column")
+        # user velocities are A/fs (times `factor`); the kernel works in A/ps
+        # (reference atomic_temperature.py:102-108 applies the same 1e3).
+        calc = AtomicTemperature(amass, self.vel * (1e3 * factor), verlet, nn,
+                                 device=self.device)
+        calc.compute()
+        self._data["atomic_temp"] = calc.T
+        return calc.T
 
     def cal_warren_cowley_parameter(
         self, rc: float = 3.0, max_neigh: Optional[int] = None
     ):
-        _not_ported("the Warren-Cowley parameter", "A12c")
+        from ..analysis.warren_cowley_parameter import WarrenCowleyParameter
+
+        verlet, dist, nn = self._nlist(rc, max_neigh)
+        calc = WarrenCowleyParameter(
+            self._data["type"], verlet, nn, elements=self._elements_or_none(),
+            device=self.device,
+        )
+        calc.compute()
+        return calc
 
     def cal_cluster_analysis(self, rc=5.0, max_neigh: Optional[int] = None) -> int:
         from ..analysis.cluster_analysis import ClusterAnalysis
@@ -774,7 +804,25 @@ class System:
         nbin_rdf: int = 200,
         window: bool = False,
     ):
-        _not_ported("the structure factor", "A12c")
+        from ..analysis.structure_factor import StructureFactor
+
+        calc = StructureFactor(
+            self.pos,
+            self._box,
+            k_min=k_min,
+            k_max=k_max,
+            nbins=nbins,
+            cal_partial=cal_partial,
+            mode=mode,
+            rc=rc,
+            nbin_rdf=nbin_rdf,
+            window=window,
+            types=self._data["type"],
+            elements=self._elements_or_none(),
+            device=self.device,
+        )
+        calc.compute()
+        return calc
 
     def average_by_neighbor(
         self,
@@ -800,7 +848,11 @@ class System:
         return out
 
     def cal_void_analysis(self, rc: float = 5.0):
-        _not_ported("the void analysis", "A12c")
+        from ..analysis.void_analysis import VoidAnalysis
+
+        calc = VoidAnalysis(self, rc, device=self.device)
+        calc.compute()
+        return calc
 
     def cal_chemical_species(
         self,
@@ -811,7 +863,77 @@ class System:
         scale: float = 0.6,
     ):
         """Molecular-formula counting via vdW-radius connectivity (system.py:2575)."""
-        _not_ported("the chemical species", "A12c")
+        from collections import Counter
+
+        import torch
+
+        from ..analysis.cluster_analysis import connected_components
+
+        if element_list is None:
+            if "element" not in self._data:
+                raise ValueError("Requires element column or element_list")
+            element_list = np.asarray(self._data["element"]).astype(str)
+        # sorted distinct symbols (the formulas' order) and each atom's index
+        symbols, code = np.unique(np.asarray(element_list).astype(str),
+                                  return_inverse=True)
+        radii = (vdw_radii[symbols_to_numbers(symbols)] * scale)[code]
+        rmax = float(2.0 * radii.max())
+        verlet, dist, nn = self._nlist(rmax)
+        dev = self.device
+        verlet = torch.as_tensor(verlet, device=dev)
+        dist = torch.as_tensor(dist, device=dev)
+        radii_t = torch.as_tensor(radii, device=dev)
+        valid = verlet >= 0
+        j = torch.where(valid, verlet, 0).long()
+        pair_cut = radii_t[:, None] + radii_t[j]
+        bonded = valid & (dist <= pair_cut) & (dist > 1e-12)
+        labels = connected_components(verlet, bonded)
+        # molecules numbered by their smallest atom, as np.unique orders the
+        # JAX method's labels; (molecule, element) pairs counted in integers
+        ids, mol = torch.unique(labels, return_inverse=True)
+        n_mol, n_sym = int(ids.numel()), len(symbols)
+        comp = torch.bincount(mol * n_sym + torch.as_tensor(code, device=dev),
+                              minlength=n_mol * n_sym).view(n_mol, n_sym)
+        kinds, first, kind_of = np.unique(comp.cpu().numpy(), axis=0,
+                                          return_index=True, return_inverse=True)
+        kind_of = kind_of.reshape(-1)
+        kind_count = np.bincount(kind_of, minlength=len(kinds))
+        formula_of_kind = [
+            "".join(f"{e}{k if k > 1 else ''}" for e, k in zip(symbols, row) if k)
+            for row in kinds
+        ]
+        # a formula enters the counter at its first molecule, as in the JAX
+        # loop over the molecules, so most_common breaks ties the same way
+        counts = Counter()
+        for kind in np.argsort(first, kind="stable"):
+            counts[formula_of_kind[kind]] += int(kind_count[kind])
+
+        def _canonical(f: str) -> str:
+            # 'OH2' and 'H2O' both normalize to the alphabetical form the
+            # counter produces (reference system.py:2668-2706 regex-parses
+            # and sorts user formulas the same way)
+            import re
+
+            c = Counter()
+            for el, num in re.findall(r"([A-Z][a-z]?)(\d*)", f):
+                if el:
+                    c[el] += int(num) if num else 1
+            return "".join(
+                f"{e}{c[e] if c[e] > 1 else ''}" for e in sorted(c)
+            )
+
+        if add_mol_id and search_species:
+            # mol_id = zero-based index into search_species, -1 if the atom's
+            # molecule is not a searched formula (reference system.py:2610-2615).
+            formula_to_mid = {
+                _canonical(f): i for i, f in enumerate(search_species)
+            }
+            kind_mid = np.array([formula_to_mid.get(f, -1) for f in formula_of_kind],
+                                dtype=np.int32)
+            self._data["mol_id"] = kind_mid[kind_of][mol.cpu().numpy()]
+        if search_species:
+            return {k: counts.get(_canonical(k), 0) for k in search_species}
+        return dict(counts.most_common(check_most))
 
 
 def _not_ported(what: str, step: str):

@@ -440,6 +440,19 @@ def test_port_imports_no_jax():
         "cutoff=(5.0, 4.0), n_max=(3, 3), basis_size=(4, 4), neurons=8, "
         "charge_mode=1), device='cpu')\n"
         "assert q.get_bec(s).shape == (256, 9) and abs(q.get_charges(s).sum()) < 1e-9\n"
+        "cu = m.build_crystal('Cu', 'fcc', 3.615, nx=2, ny=2, nz=2, device='cpu')\n"
+        "assert cu.N == 32 and isinstance(cu, m.System)\n"
+        "pc = m.CreatePolycrystal(m.build_crystal('Cu', 'fcc', 3.615, device='cpu'), "
+        "30.0, 2, randomseed=1, metal_overlap_dis=2.0, device='cpu').compute(verbose=False)\n"
+        "assert pc.N > 1000 and set(np.unique(pc.data['grain_id'])) == {1, 2}\n"
+        "for mode in ('debye', 'direct'):\n"
+        "    sk = m.StructureFactor(cu.pos, cu.box, k_max=6.0, nbins=30, mode=mode, "
+        "cal_partial=True, elements=cu.data['element'], device='cpu').compute()\n"
+        "    assert sk.Sk.shape == (30,) and np.isfinite(sk.get_xray_structure_factor()).any()\n"
+        "from _water_box import water_box\n"
+        "wp, we, wl = water_box(3)\n"
+        "w = m.System(pos=wp, box=np.eye(3) * wl, element_list=we, device='cpu')\n"
+        "assert w.cal_chemical_species(['H2O'], scale=0.4, add_mol_id=True) == {'H2O': 27}\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not {'pandas', 'pyarrow', 'polars'} & set(sys.modules)\n"
         "print('ok')\n"

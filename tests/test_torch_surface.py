@@ -41,7 +41,7 @@ def _has_all(sub: str, f: str) -> bool:
 PORTED = sorted(
     f"{sub}.{f[:-3]}"
     for sub in ("render", "neighbor", "potentials", "analysis", "core", "io",
-                "utils")
+                "utils", "build")
     for f in os.listdir(os.path.join(REPO, "mdapy_tpu_torch", sub))
     if f.endswith(".py") and f != "__init__.py" and _has_all(sub, f))
 
@@ -84,16 +84,9 @@ RENAMED = {("utils.spline", "Spline", "evaluate_jax"): "evaluate_torch"}
 # the JAX package's _LAZY names whose modules the port has not reached,
 # by the ROADMAP step that ports them
 STEPS = {
-    ".build.lattice": "A12b", ".build.polycrystal": "A12b",
-    ".build.orthogonal_cell": "A12b", ".build.sqs": "A12d",
+    ".build.sqs": "A12d",
     ".analysis.ptm": "A12d", ".analysis.voronoi": "A12d",
-    ".analysis.atomic_temperature": "A12c",
-    ".analysis.warren_cowley_parameter": "A12c",
-    ".analysis.mean_squared_displacement": "A12c",
-    ".analysis.lindemann_parameter": "A12c",
-    ".analysis.void_analysis": "A12c", ".analysis.structure_factor": "A12c",
-    ".analysis.spatial_binning": "A12c",
-    ".analysis.identify_fcc_planar_faults": "A12c",
+    ".analysis.identify_fcc_planar_faults": "A12d",
     ".analysis.phonon": "A12e", ".render.visualize": "A12e",
     ".utils.tool_function": "A12e", ".utils.potential_tool": "A12e",
     ".utils.pigz": "A12e", ".utils.plotset": "A12e",
@@ -110,7 +103,9 @@ def _module(pkg: str, name: str):
 def test_ported_modules_are_found():
     assert len(PORTED) >= 40
     for name in ("core.system", "io.load_save", "io.trajectory", "utils.spline",
-                 "potentials.nep", "render.render", "analysis.common"):
+                 "potentials.nep", "render.render", "analysis.common",
+                 "build.lattice", "build.polycrystal", "build.orthogonal_cell",
+                 "analysis.structure_factor", "analysis.void_analysis"):
         assert name in PORTED
 
 

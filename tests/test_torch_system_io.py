@@ -562,11 +562,6 @@ UNPORTED = {
     "cal_polyhedral_template_matching": ((), "A12d"),
     "cal_voronoi_volume": ((), "A12d"),
     "build_voronoi_neighbor": ((), "A12d"),
-    "cal_structure_factor": ((), "A12c"),
-    "cal_warren_cowley_parameter": ((), "A12c"),
-    "cal_atomic_temperature": ((), "A12c"),
-    "cal_void_analysis": ((), "A12c"),
-    "cal_chemical_species": ((), "A12c"),
     "set_pka": ((1000.0, np.array([1.0, 0, 0])), "A12e"),
 }
 
