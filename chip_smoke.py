@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port's main paths on one card: the
 renderer, the neighbor engine, the potentials, the structure analyses, the
-System with its files and the qNEP charge models, the crystal builders and
-the host analyses.
+System with its files and the qNEP charge models, the crystal builders,
+the host analyses, the native engines (PTM with the planar faults,
+Voronoi, SQS) and the tool functions.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -285,8 +286,39 @@ S5. S(k) on the perfect lattice of 32,000 atoms of CoNiCrFeMn (20^3
     ``LindemannParameter`` on 200 frames x 5,000 atoms, ``only_global``
     and per atom, their ``lindemann_trj`` within 1e-12 relative.
 
+The native engines (host C++ built with g++ at first use, OpenMP through
+ctypes) and the tool functions, after [S5] (host seconds beside the card's
+name and power limit; the block is N1's rattled by 0.05 A, seed 61):
+
+S6. ``PolyhedralTemplateMatching`` with the default structures on the
+    block: the 18 nearest neighbours on the card (``knn_tensors``, CUDA
+    events), the indices' copy to the host, the displacements and the host
+    engine (its OpenMP threads printed); then ``compute()`` again, equal
+    bit for bit; at least 99 % of the atoms FCC.  ``structure="all"`` on
+    [S2]'s 1,000,000 atoms of diamond: every atom DCUB (6).
+    ``cal_polyhedral_template_matching(identify_fcc_planar_faults=True)``
+    on ``tests/_fault_stack.py``'s close-packed stack of 100 layers of
+    10,000 atoms (an ISF, a twin and an ESF): every inner layer's ``pft``
+    its known code.  The card against the CPU on 32,000 atoms rattled,
+    "all": types and indices equal, floats within 1e-12.
+V1. On the block: ``System.cal_voronoi_volume`` (the cells' volumes sum to
+    the box's within 1e-9 relative), ``build_voronoi_neighbor`` (its rows
+    compacted on the card) and ``SteinhardtBondOrientation(use_voronoi=
+    True, use_weight=True)``, each twice, equal bit for bit; the
+    Steinhardt call on the card against the CPU on 4,000 atoms.
+Q2. ``SQS`` of a 5-element equimolar FCC ``build_hea`` (CoNiCrFeMn, a
+    3.55 A, 6^3 cells, 864 atoms), ``cutoffs={2: 4.0}`` (the first two
+    shells), 8 replicas x 10^6 steps: host seconds and the objective; a
+    rerun with the same seed equal.
+U1. ``System.set_pka`` (1000 eV) on the block with Maxwell velocities:
+    one atom sped up, the centre-of-mass velocity 0 within 1e-12 A/fs;
+    ``average_by_neighbor`` at rc 5 A on the card (median of 3, repeats
+    bit for bit), against the CPU on 4,000 atoms within 1e-12;
+    ``generate_velocity`` on 10^6 atoms, its temperature within 1 % and a
+    rerun equal.
+
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
-6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1, Q1, BL1 and S5.  The
+6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1, Q1, BL1, S5, S6, V1, Q2 and U1.  The
 headline frame, configs 2 and 3 and T1 also print the bound of the whole
 frame, and T1-T3 that of their band: the tests the plain version counts
 there (those the early exits leave) at the H100's fp32 peak, against the
@@ -3081,6 +3113,290 @@ def host_analysis_phases(card: str) -> dict:
     return out
 
 
+# ---- the native engines and the tool functions (ROADMAP A12d, A12e) -----
+
+NATIVE_RATTLE = 0.05        # A, [N1]'s block as [S6], [V1] and [U1] take it
+PTM_CUT_CELLS = 20          # 32,000 atoms: PTM on the card against the CPU
+PTM_FCC_SHARE = 0.99        # of the rattled block, at least
+STACK_SIDE, STACK_LAYERS = 100, 100   # 10,000 atoms a layer, 1,000,000
+SQS_CELLS, SQS_STEPS, SQS_REPLICAS = 6, 10**6, 8
+VELOCITY_ATOMS = 10**6
+TOL_VORONOI_SUM = 1e-9      # relative, the cells' volumes against the box's
+TOL_COM = 1e-12             # A/fs, the centre of mass after set_pka
+
+
+def event_call(fn):
+    """One call of ``fn`` between two CUDA events: (its result, ms)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
+def ptm_phase(card: str) -> dict:
+    """[S6] PTM: the default structures on the rattled [N1] block, "all" on
+    [S2]'s diamond, the planar faults on a 1,000,000-atom fault stack, and
+    the card against the CPU on a 32,000-atom cut."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.analysis import ptm as tptm
+    from mdapy_tpu_torch.core.box import Box
+    from mdapy_tpu_torch.neighbor.knn import knn_tensors
+    from mdapy_tpu_torch.neighbor.neighbor import replicate_for_small_box
+    from _fault_stack import fault_stack
+
+    out = {}
+    threads = tptm.engine_threads()
+    t0 = time.perf_counter()
+    tptm._get_engine()
+    print(f"[S6] {card}: PTM (the kNN on the card, the matching in the host "
+          f"engine on {threads} OpenMP threads); engine build and template "
+          f"bootstrap {time.perf_counter() - t0:.2f} s")
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS, rattle=NATIVE_RATTLE, seed=61)
+    n = len(pos)
+    ptm = mt.PolyhedralTemplateMatching("fcc-hcp-bcc", pos, box)
+    pos_r, box_r, n_img = replicate_for_small_box(pos, box, tptm.REPLICATE_RC)
+    knn = lambda: knn_tensors(pos_r, box_r, tptm.K_NEIGHBORS)  # noqa: E731
+    knn()                                       # warm-up
+    (idx_d, _), knn_ms = event_call(knn)
+    idx, copy_ms = event_call(lambda: idx_d.cpu().numpy().astype(np.int64))
+    del idx_d
+    (first, atoms), match_s = sync_time(lambda: ptm.match(pos_r, box_r, idx))
+    types = first[:, 0].astype(int)
+    share = float((types == 1).mean())
+    counts = np.bincount(types, minlength=4)[:4].tolist()
+    if n_img != 1 or share < PTM_FCC_SHARE:
+        fail(f"[S6] PTM: {share * 100:.3f} % of the rattled block FCC "
+             f"(counts Other/FCC/HCP/BCC {counts})")
+    again, again_s = sync_time(lambda: ptm.compute())
+    if not (again.output.tobytes() == first.tobytes() and np.array_equal(
+            again.ptm_indices, np.where(atoms[:, :18] >= 0, atoms[:, :18] % n,
+                                        -1).astype(np.int32))):
+        fail("[S6] PTM: a second call differs from the first")
+    print(f"  default structures on {n} atoms of FCC Cu rattled "
+          f"{NATIVE_RATTLE} A (seed 61): {share * 100:.4f} % FCC, counts "
+          f"Other/FCC/HCP/BCC {counts}; kNN (k 18) on the card {knn_ms:.3f} ms "
+          f"(CUDA events, after a warm-up call), indices to the host {copy_ms:.3f} ms, displacements "
+          f"+ host engine {match_s:.3f} s on {threads} threads; the whole "
+          f"compute() again {again_s:.3f} s, equal bit for bit; {card}")
+    out["default"] = {"atoms": n, "fcc_share": share, "knn_ms": knn_ms,
+                      "copy_ms": copy_ms, "match_s": match_s,
+                      "compute_s": again_s, "threads": threads}
+    del first, atoms, again, idx, ptm
+
+    dia = diamond_positions(DIAMOND_CELLS, 5.431)
+    dbox = Box(np.eye(3) * DIAMOND_CELLS * 5.431)
+    res, dia_s = sync_time(lambda: mt.PolyhedralTemplateMatching(
+        "all", dia, dbox).compute())
+    if not (res.output[:, 0] == 6).all():
+        fail(f"[S6] PTM 'all': {int((res.output[:, 0] != 6).sum())} diamond "
+             "atoms are not cubic diamond")
+    print(f"  structure='all' on {len(dia)} atoms of cubic diamond ([S2]'s, a 5.431 A): "
+          f"every atom DCUB (6); {dia_s:.3f} s; {card}")
+    out["all_diamond"] = {"atoms": len(dia), "s": dia_s}
+    del res, dia
+
+    spos, sm, sb, layer, expect = fault_stack(STACK_SIDE, STACK_LAYERS)
+    stack = mt.System(pos=spos, box=sm, boundary=sb)
+    _, stack_s = sync_time(lambda: stack.cal_polyhedral_template_matching(
+        identify_fcc_planar_faults=True))
+    pft = np.asarray(stack.data["pft"])
+    for k, code in enumerate(expect):
+        if code >= 0 and set(pft[layer == k].tolist()) != {code}:
+            fail(f"[S6] planar faults: layer {k} holds codes "
+                 f"{sorted(set(pft[layer == k].tolist()))}, not {code}")
+    faults = {int(k): int(c) for k, c in enumerate(expect) if c > 0}
+    print(f"  identify_fcc_planar_faults on a {len(spos)}-atom close-packed "
+          f"stack ({STACK_SIDE ** 2} atoms a layer, {STACK_LAYERS} layers, "
+          f"tests/_fault_stack.py): every inner layer its known code "
+          f"(layer: code {faults}; ISF 2, twin 3, ESF 5); {stack_s:.3f} s; {card}")
+    out["faults"] = {"atoms": len(spos), "s": stack_s, "layers": faults}
+    del stack, spos, pft
+
+    cut, cbox, _ = fcc_system(PTM_CUT_CELLS, rattle=NATIVE_RATTLE, seed=62)
+    got = mt.PolyhedralTemplateMatching("all", cut, cbox).compute()
+    want = mt.PolyhedralTemplateMatching("all", cut, cbox,
+                                         device="cpu").compute()
+    err = float(np.abs(got.output[:, 2:] - want.output[:, 2:]).max())
+    if not (np.array_equal(got.output[:, :2], want.output[:, :2])
+            and np.array_equal(got.ptm_indices, want.ptm_indices)) \
+            or err > TOL_CARD_CPU:
+        fail(f"[S6] PTM: the card and the CPU differ on {len(cut)} atoms "
+             f"(floats by {err})")
+    print(f"    card against the CPU ({len(cut)} atoms rattled, 'all'): types "
+          f"and indices equal, floats within {err:.3e}")
+    out["card_cpu_err"] = err
+    return out
+
+
+def voronoi_phase(card: str) -> dict:
+    """[V1] Voronoi volumes, neighbors and Steinhardt's use_voronoi on the
+    rattled [N1] block."""
+    import mdapy_tpu_torch as mt
+
+    out = {}
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS, rattle=NATIVE_RATTLE, seed=61)
+    n = len(pos)
+    s = mt.System(pos=pos, box=box, element_list=np.full(n, "Cu", object))
+
+    def volumes():
+        s.cal_voronoi_volume()
+        return tuple(np.asarray(s.data[c]).copy()
+                     for c in ("volume", "neighbor_number", "cavity_radius"))
+
+    first, vol_s = sync_time(volumes)
+    again, vol2_s = sync_time(volumes)
+    rel = abs(float(first[0].sum()) / box.volume - 1.0)
+    if not same_bits(first, again) or rel > TOL_VORONOI_SUM:
+        fail(f"[V1] Voronoi volumes: sum off the box by {rel:.3e} relative, "
+             f"or a repeat differs")
+    print(f"[V1] {card}: Voronoi on {n} atoms of FCC Cu rattled "
+          f"{NATIVE_RATTLE} A (the native engine on the host)")
+    print(f"  cal_voronoi_volume: {vol_s:.3f} s, again {vol2_s:.3f} s, equal bit "
+          f"for bit; volumes sum to the box within {rel:.3e} relative; faces "
+          f"{int(first[1].min())}-{int(first[1].max())}")
+    out["volume"] = {"s": vol_s, "again_s": vol2_s, "sum_rel": rel}
+
+    def lists():
+        s.build_voronoi_neighbor()
+        return (s.voro_verlet_list.copy(), s.voro_distance_list.copy(),
+                s.voro_face_area.copy(), s.voro_neighbor_number.copy())
+
+    first, nb_s = sync_time(lists)
+    again, nb2_s = sync_time(lists)
+    if not same_bits(first, again) or not np.array_equal(
+            first[3], np.asarray(s.data["neighbor_number"])):
+        fail("[V1] build_voronoi_neighbor: a repeat differs, or its counts "
+             "are not the cells' faces")
+    print(f"  build_voronoi_neighbor (rows compacted on the card): {nb_s:.3f} s, "
+          f"again {nb2_s:.3f} s, equal bit for bit; {first[0].shape[1]} "
+          f"columns; {card}")
+    out["neighbors"] = {"s": nb_s, "again_s": nb2_s, "cols": first[0].shape[1]}
+    del first, again
+
+    def stein():
+        return mt.SteinhardtBondOrientation(pos, box, llist=(4, 6),
+                                            use_voronoi=True,
+                                            use_weight=True).compute().qnarray
+
+    q, q_s = sync_time(stein)
+    q2, q2_s = sync_time(stein)
+    if not same_bits((q,), (q2,)) or not np.isfinite(q).all():
+        fail("[V1] Steinhardt use_voronoi: a repeat differs or a value is "
+             "not finite")
+    print(f"  SteinhardtBondOrientation(use_voronoi=True, use_weight=True), l 4 "
+          f"and 6: {q_s:.3f} s, again {q2_s:.3f} s, equal bit for bit; mean "
+          f"q6 {float(q[:, 1].mean()):.6f}; {card}")
+    out["steinhardt"] = {"s": q_s, "again_s": q2_s}
+    cut, cbox, _ = fcc_system(CUT_CELLS, rattle=NATIVE_RATTLE, seed=63)
+    card_against_cpu("[V1]", "Voronoi-weighted Steinhardt", lambda d:
+                     mt.SteinhardtBondOrientation(cut, cbox, use_voronoi=True,
+                                                  use_weight=True,
+                                                  device=d).compute(),
+                     lambda o: (o.qnarray,))
+    return out
+
+
+def sqs_phase(card: str) -> dict:
+    """[Q2] SQS on 864 atoms of equimolar CoNiCrFeMn, 10^6 Monte Carlo
+    steps in 8 replicas, twice."""
+    import mdapy_tpu_torch as mt
+
+    hea = mt.build_hea(HEA_ELEMENTS, (0.2,) * 5, "fcc", 3.55, nx=SQS_CELLS,
+                       ny=SQS_CELLS, nz=SQS_CELLS, random_seed=1)
+    kw = dict(cutoffs={2: 4.0}, n_replicas=SQS_REPLICAS, max_steps=SQS_STEPS,
+              seed=1)
+    base = mt.SQS(hea, **dict(kw, max_steps=0)).compute()
+    first, sqs_s = sync_time(lambda: mt.SQS(hea, **kw).compute())
+    again, again_s = sync_time(lambda: mt.SQS(hea, **kw).compute())
+    same = (np.array_equal(first._best_types, again._best_types)
+            and first.objective == again.objective
+            and first.correlations.tobytes() == again.correlations.tobytes())
+    if not same or not first.objective < base.objective:
+        fail(f"[Q2] SQS: a rerun with the same seed differs, or the objective "
+             f"{first.objective} did not fall below {base.objective}")
+    counts = np.bincount(first._best_types, minlength=5).tolist()
+    print(f"[Q2] {card}: SQS of {hea.N} atoms of CoNiCrFeMn (FCC 3.55 A, "
+          f"{SQS_CELLS}^3 cells), cutoffs {{2: 4.0}} ({len(first.channel_info)} "
+          f"channels), {SQS_REPLICAS} replicas x {SQS_STEPS} steps: "
+          f"{sqs_s:.3f} s on the host (again {again_s:.3f} s, equal); "
+          f"objective {base.objective:.6f} -> {first.objective:.6f}; "
+          f"counts {counts}")
+    return {"atoms": hea.N, "s": sqs_s, "again_s": again_s,
+            "objective": first.objective, "objective_start": base.objective}
+
+
+def tool_phase(card: str) -> dict:
+    """[U1] set_pka and average_by_neighbor on the rattled [N1] block,
+    generate_velocity on 10^6 atoms."""
+    import mdapy_tpu_torch as mt
+    from mdapy_tpu_torch.core.elements import atomic_masses, atomic_numbers
+    from mdapy_tpu_torch.utils.tool_function import average_by_neighbor
+
+    out = {}
+    pos, box, _ = fcc_system(NEIGHBOR_CELLS, rattle=NATIVE_RATTLE, seed=61)
+    n = len(pos)
+    mass = float(atomic_masses[atomic_numbers["Cu"]])
+    vel = _maxwell(n, mass, 300.0, 64)
+    s = mt.System(pos=pos, box=box, element_list=np.full(n, "Cu", object))
+    s.update_data(s.data.with_columns(vx=vel[:, 0], vy=vel[:, 1], vz=vel[:, 2]))
+    _, pka_s = sync_time(lambda: s.set_pka(1000.0, np.array([1.0, 1.0, 1.0])))
+    v = np.column_stack([np.asarray(s.data[c]) for c in ("vx", "vy", "vz")])
+    com = float(np.abs(v.mean(axis=0)).max())
+    moved = int((np.abs(v - vel).max(axis=1) > 1e-3).sum())
+    if com > TOL_COM or moved != 1:
+        fail(f"[U1] set_pka: centre of mass {com:.3e} A/fs, {moved} atoms "
+             "sped up")
+    print(f"[U1] {card}: set_pka(1000 eV) on {n} atoms: {pka_s * 1e3:.3f} ms on "
+          f"the host, one atom sped up, centre of mass {com:.3e} A/fs")
+    out["set_pka_s"] = pka_s
+
+    prop = np.random.default_rng(65).normal(size=n)
+    run = lambda: average_by_neighbor(pos, box, prop, 5.0)  # noqa: E731
+    ms, avg = median_ms(run, 3)
+    again = run()
+    if avg.tobytes() != again.tobytes():
+        fail("[U1] average_by_neighbor: a repeat differs")
+    print(f"  average_by_neighbor at rc 5 A: {ms:.3f} ms (median of 3, the "
+          f"neighbor build included), repeats bit for bit; {card}")
+    out["average_ms"] = ms
+    cut, cbox, _ = fcc_system(CUT_CELLS, rattle=NATIVE_RATTLE, seed=66)
+    cprop = np.random.default_rng(67).normal(size=len(cut))
+    out["average_card_cpu"] = card_against_cpu(
+        "[U1]", "average_by_neighbor", lambda d: average_by_neighbor(
+            cut, cbox, cprop, 5.0, device=d), lambda o: (o,))
+
+    gen = lambda: mt.generate_velocity(VELOCITY_ATOMS, mass, 300.0,  # noqa: E731
+                                       seed=68)
+    v1, gen_s = sync_time(gen)
+    temp = float((mass * (v1 ** 2).sum()) / (3 * VELOCITY_ATOMS)
+                 * 1e10 / 6.022140857e26 / 1.380649e-23)
+    if v1.tobytes() != gen().tobytes() or abs(temp - 300.0) > 3.0:
+        fail(f"[U1] generate_velocity: a rerun differs or T = {temp} K")
+    print(f"  generate_velocity({VELOCITY_ATOMS}, Cu, 300 K, seed=68): "
+          f"{gen_s * 1e3:.3f} ms on the host, T {temp:.3f} K, a rerun equal")
+    out["generate_velocity_s"] = gen_s
+    return out
+
+
+def native_phases(card: str) -> dict:
+    """[S6], [V1], [Q2] and [U1], after [S5]."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # _fault_stack
+    t0 = time.perf_counter()
+    out = {}
+    for tag, phase in (("S6", ptm_phase), ("V1", voronoi_phase),
+                       ("Q2", sqs_phase), ("U1", tool_phase)):
+        t1 = time.perf_counter()
+        out[tag] = phase(card)
+        torch.cuda.empty_cache()
+        print(f"[{tag}] {time.perf_counter() - t1:.1f} s")
+    print(f"[S6-U1] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -4064,6 +4380,8 @@ def main() -> None:
     print(json.dumps({"system": system}))
     host = host_analysis_phases(card)
     print(json.dumps({"host": host}))
+    native = native_phases(card)
+    print(json.dumps({"native": native}))
 
     print(json.dumps({"kernels": [{
         "name": "mega_render",

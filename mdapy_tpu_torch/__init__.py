@@ -24,7 +24,17 @@ reference it is tested against.  Ported so far, for one card:
   overlap filter runs on the device;
 * the host analyses: structure factor, Warren-Cowley, atomic temperature,
   MSD, Lindemann, spatial binning and voids, in float64 torch ops, and
-  ``System.cal_chemical_species``.
+  ``System.cal_chemical_species``;
+* the native engines, host C++ built with g++ at first use and called
+  through ctypes: polyhedral template matching (its neighbors found on the
+  device) with the FCC planar faults, Voronoi cells and neighbors (their
+  rows compacted on the device, for Steinhardt's ``use_voronoi``), and
+  ``SQS``;
+* the rest of the public surface: the tool functions (``set_pka``,
+  ``generate_velocity``, ``split_xyz``), the potential tools (EOS,
+  stacking-fault energies, thermo and OUTCAR readers, PCA, FPS), the
+  parallel gzip, the plot settings, and ``Phonon`` and ``View`` (which
+  need phonopy and k3d).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or ``backend="cpu"`` for the renderer).  This package
@@ -89,6 +99,34 @@ _LAZY = {
     "LatticeRegistry": (".build.lattice", "LatticeRegistry"),
     "CreatePolycrystal": (".build.polycrystal", "CreatePolycrystal"),
     "orthogonal_cell": (".build.orthogonal_cell", "orthogonal_cell"),
+    "PolyhedralTemplateMatching": (".analysis.ptm", "PolyhedralTemplateMatching"),
+    "IdentifyFccPlanarFaults": (".analysis.identify_fcc_planar_faults", "IdentifyFccPlanarFaults"),
+    # Back-compat alias (all-caps FCC spelling) for the same class.
+    "IdentifyFCCPlanarFaults": (".analysis.identify_fcc_planar_faults", "IdentifyFccPlanarFaults"),
+    "VoronoiAnalysis": (".analysis.voronoi", "VoronoiAnalysis"),
+    "SQS": (".build.sqs", "SQS"),
+    "Phonon": (".analysis.phonon", "Phonon"),
+    "View": (".render.visualize", "View"),
+    "set_pka": (".utils.tool_function", "set_pka"),
+    "generate_velocity": (".utils.tool_function", "generate_velocity"),
+    "split_xyz": (".utils.tool_function", "split_xyz"),
+    "rmse": (".utils.potential_tool", "rmse"),
+    "read_thermo": (".utils.potential_tool", "read_thermo"),
+    "plot_nep_train": (".utils.potential_tool", "plot_nep_train"),
+    "get_sfe_fcc": (".utils.potential_tool", "get_sfe_fcc"),
+    "get_average_sfe_fcc_hea": (".utils.potential_tool", "get_average_sfe_fcc_hea"),
+    "get_eos": (".utils.potential_tool", "get_eos"),
+    "PCA": (".utils.potential_tool", "PCA"),
+    "fps_sample": (".utils.potential_tool", "fps_sample"),
+    "cfg2xyz": (".utils.potential_tool", "cfg2xyz"),
+    "read_OUTCAR": (".utils.potential_tool", "read_OUTCAR"),
+    "outcar2xyz": (".utils.potential_tool", "outcar2xyz"),
+    "outcars2xyz": (".utils.potential_tool", "outcars2xyz"),
+    "run_gpumd": (".utils.potential_tool", "run_gpumd"),
+    "compress_file": (".utils.pigz", "compress_file"),
+    "pltset": (".utils.plotset", "pltset"),
+    "set_figure": (".utils.plotset", "set_figure"),
+    "save_figure": (".utils.plotset", "save_figure"),
 }
 
 __all__ = sorted(_LAZY)

@@ -14,8 +14,11 @@ solid bonds, isolated solid atoms removed.  The JAX package sums w_l and
 classifies on the host in numpy; here both run on the device, the triple
 sum over the (m1, m2) terms at once.
 
-``use_voronoi`` needs the native Voronoi engine, which comes with ROADMAP
-A12d: it raises ``NotImplementedError`` until then.
+With ``use_voronoi`` the lists are the Voronoi neighbors of
+``analysis/voronoi.py`` (the native engine on the host, its rows compacted
+on the device), weighted by their face areas under ``use_weight`` (JAX
+:166-176); a Voronoi row's slots are those below its own count (JAX
+:189-193).
 """
 
 from __future__ import annotations
@@ -183,14 +186,18 @@ class SteinhardtBondOrientation:
         dev = self.device
         n = len(self.pos)
         verlet, dist, nn = self._nlist
+        weight = self.weight
         if verlet is None:
             if self.use_voronoi:
-                raise NotImplementedError(
-                    "use_voronoi needs the native Voronoi engine, which the "
-                    "port does not have yet (ROADMAP A12d); pass nnn or rc, "
-                    "or precomputed verlet_list, distance_list and "
-                    "neighbor_number")
-            if self.nnn > 0:
+                from .voronoi import VoronoiAnalysis
+
+                vor = VoronoiAnalysis(self.pos, self.box, device=dev)
+                vor.compute_neighbors(self.a_face_area_threshold,
+                                      self.r_face_area_threshold)
+                verlet, dist, nn, areas = vor.tensors
+                if self.use_weight and weight is None:
+                    weight = areas
+            elif self.nnn > 0:
                 verlet, dist = knn_tensors(self.pos, self.box, self.nnn,
                                            device=dev)
                 nn = torch.full((n,), self.nnn, dtype=torch.int32, device=dev)
@@ -202,7 +209,7 @@ class SteinhardtBondOrientation:
         verlet = torch.as_tensor(verlet, device=dev)
         dist = torch.as_tensor(dist, dtype=torch.float64, device=dev)
         rc_eff = self.rc if self.rc > 0 else 1e30
-        if self.use_weight and self.weight is None:
+        if self.use_weight and weight is None:
             raise ValueError("use_weight=True requires weight (or use_voronoi)")
         m, inv, b = box_tensors(self.box, dev)
         pos = torch.as_tensor(self.pos, device=dev)
@@ -213,7 +220,7 @@ class SteinhardtBondOrientation:
         else:
             nn = torch.as_tensor(nn, device=dev)
             slot_ok = (verlet >= 0) & (slot < nn[:, None])
-        weight = (torch.as_tensor(self.weight, dtype=torch.float64, device=dev)
+        weight = (torch.as_tensor(weight, dtype=torch.float64, device=dev)
                   if self.use_weight else None)
 
         qlms = []

@@ -12,10 +12,10 @@ columns).
 
 ``System`` takes ``device`` (the card by default; without one it raises
 unless ``device="cpu"``), and every neighbor build and analysis it starts
-runs there.  Each ``cal_*`` whose analysis is ported calls the port's class
-on the system's device and stores its columns as the JAX package does; the
-rest raise ``NotImplementedError`` naming the ROADMAP step that ports them:
-PTM with the planar faults, Voronoi (A12d); ``set_pka`` (A12e).
+runs there.  Each ``cal_*`` calls the port's class on the system's device
+and stores its columns as the JAX package does.  PTM's matching, the
+Voronoi cells and the planar faults run on the host (the native engines
+and numpy), their neighbor lists on the device.
 
 ``cal_chemical_species`` gives the JAX method's dict, formulas,
 ``most_common`` order and ``mol_id`` from a grouped count (the labels
@@ -217,9 +217,19 @@ class System:
         element: Optional[str] = None,
         factor: float = 1.0,
     ) -> None:
-        """Assign PKA kinetic energy/direction for cascade setup (the JAX
-        package's ``utils/tool_function.py:set_pka``, not ported yet)."""
-        _not_ported("set_pka", "A12e")
+        """Assign PKA kinetic energy/direction for cascade setup
+        (parity: system.py:503-561; velocity units A/fs via ``factor``).
+        A copy of ``mdapy_tpu/core/system.py:203-221``."""
+        from ..utils.tool_function import set_pka as _set_pka
+
+        for c in ("vx", "vy", "vz"):
+            assert c in self._data, f"data must contain {c}."
+            self._data[c] = np.asarray(self._data[c], np.float64) * factor
+        try:
+            _set_pka(self, energy, direction, index=index, element=element)
+        finally:
+            for c in ("vx", "vy", "vz"):
+                self._data[c] = np.asarray(self._data[c], np.float64) / factor
 
     # ------------------------------------------------------------- mutation
     def update_data(self, data: Union[AtomFrame, Dict[str, np.ndarray]]) -> None:
@@ -417,8 +427,22 @@ class System:
         a_face_area_threshold: float = -1.0,
         r_face_area_threshold: float = -1.0,
     ) -> None:
-        """Voronoi neighbors + shared-face properties (system.py:1168)."""
-        _not_ported("build_voronoi_neighbor (Voronoi)", "A12d")
+        """Voronoi neighbors + shared-face properties (system.py:1168).
+
+        Sets ``voro_verlet_list`` (N, max_neigh; -1 padded),
+        ``voro_distance_list``, ``voro_face_area`` and
+        ``voro_neighbor_number``.  Faces with area below
+        max(a_threshold, cell_total_area * r_threshold) are dropped.  A copy
+        of ``mdapy_tpu/core/system.py:415-432``; the rows are compacted on
+        the system's device."""
+        from ..analysis.voronoi import VoronoiAnalysis
+
+        vor = VoronoiAnalysis(self.pos, self._box, device=self.device)
+        vor.compute_neighbors(a_face_area_threshold, r_face_area_threshold)
+        self.voro_verlet_list = vor.verlet_list
+        self.voro_distance_list = vor.distance_list
+        self.voro_face_area = vor.face_areas
+        self.voro_neighbor_number = vor.neighbor_number
 
     def _nlist(self, rc: float, max_neigh: Optional[int] = None):
         """Reuse cached Verlet list when it covers rc, else rebuild.
@@ -556,8 +580,45 @@ class System:
         identify_fcc_planar_faults: bool = False,
         identify_esf: bool = True,
     ) -> np.ndarray:
-        """PTM structure types -> self.data['ptm'] (reference system.py:1863)."""
-        _not_ported("PTM (and its planar faults)", "A12d")
+        """PTM structure types -> self.data['ptm'] (reference system.py:1863).
+
+        Codes: 0=Other 1=FCC 2=HCP 3=BCC 4=ICO 5=SC 6=DCUB 7=DHEX 8=Graphene.
+        A copy of ``mdapy_tpu/core/system.py:560-614``; the neighbors are
+        found on the system's device.
+        """
+        from ..analysis.ptm import PolyhedralTemplateMatching
+
+        ptm = PolyhedralTemplateMatching(
+            structure, self.pos, self._box, rmsd_threshold,
+            types=self._data["type"], device=self.device,
+        )
+        ptm.compute()
+        out = ptm.output
+        self._data["ptm"] = out[:, 0].astype(np.int32)
+        if return_ordering:
+            self._data["ordering"] = out[:, 1]
+        if return_rmsd:
+            self._data["rmsd"] = out[:, 2]
+        if return_atomic_distance:
+            self._data["interatomic_distance"] = out[:, 3]
+        if return_orientation:
+            self._data["qx"] = out[:, 5]
+            self._data["qy"] = out[:, 6]
+            self._data["qz"] = out[:, 7]
+            self._data["qw"] = out[:, 4]
+        if identify_fcc_planar_faults:
+            from ..analysis.identify_fcc_planar_faults import (
+                IdentifyFccPlanarFaults,
+            )
+
+            ifpt = IdentifyFccPlanarFaults(
+                out[:, 0].astype(np.int32),
+                np.ascontiguousarray(ptm.ptm_indices[:, 1:13]),
+                identify_esf,
+            )
+            ifpt.compute()
+            self._data["pft"] = ifpt.fault_types[: self.N]
+        return self._data["ptm"]
 
     def cal_centro_symmetry_parameter(self, N: int = 12) -> np.ndarray:
         from ..analysis.centro_symmetry_parameter import CentroSymmetryParameter
@@ -753,7 +814,17 @@ class System:
         return calc
 
     def cal_voronoi_volume(self):
-        _not_ported("the Voronoi volume", "A12d")
+        """Per-atom Voronoi volume, face count and cavity radius (a copy of
+        ``mdapy_tpu/core/system.py:805-813``; the native engine on the
+        host)."""
+        from ..analysis.voronoi import VoronoiAnalysis
+
+        calc = VoronoiAnalysis(self.pos, self._box, device=self.device)
+        calc.compute()
+        self._data["volume"] = calc.volume
+        self._data["neighbor_number"] = calc.neighbor_number
+        self._data["cavity_radius"] = calc.cavity_radius
+        return calc
 
     def cal_chill_plus(self, cutoff: float = 3.5) -> np.ndarray:
         from ..analysis.chill_plus import ChillPlus
@@ -935,7 +1006,3 @@ class System:
             return {k: counts.get(_canonical(k), 0) for k in search_species}
         return dict(counts.most_common(check_most))
 
-
-def _not_ported(what: str, step: str):
-    raise NotImplementedError(
-        f"{what} is not ported to mdapy_tpu_torch yet (ROADMAP {step})")

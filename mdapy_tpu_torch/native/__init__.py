@@ -1,12 +1,23 @@
 """The host's native (C++) pieces, built with g++ at first use.
 
 The port of ``mdapy_tpu/native/__init__.py`` (``load_library`` :21-42) for
-the one source the port has so far, ``table_parser.cpp`` (the columnar
-parser of dump and XYZ bodies).  A library lands in
+the port's copies of the JAX package's four sources: ``table_parser.cpp``
+(the columnar parser of dump and XYZ bodies), ``ptm_engine.cpp``
+(polyhedral template matching), ``voro_engine.cpp`` (Voronoi cells) and
+``sqs_engine.cpp`` (the SQS Monte Carlo).  A library lands in
 ``mdapy_tpu_torch/_build/`` (git-ignored) under a name that hashes the
 source and the flags, so an edited source rebuilds and an unchanged one is
-reused; a failed build raises with the compiler's output.  Loaded through
-ctypes; nothing here runs at import time.
+reused; a failed build raises with the compiler's output, and no caller
+falls back to another route.  Each build compiles into a temporary named
+by the process id, so two processes that build the same source at once do
+not write one file (the JAX package's fixed ``<name>.so.tmp`` can race:
+ROADMAP C17).  Loaded through ctypes; nothing here runs at import time.
+
+The flags leave out the JAX package's ``-march=native``: a library built
+on one host must load on another.  On a host with FMA that flag lets g++
+contract ``a*b + c``, so the JAX package's engines can differ from these
+in the last bits of PTM's RMSD and quaternions, Voronoi's volumes and
+areas, and SQS's objective (ROADMAP C16).
 """
 
 from __future__ import annotations

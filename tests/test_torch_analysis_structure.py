@@ -267,12 +267,26 @@ def test_free_boundaries_and_an_origin_match_jax(boundary):
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
-def test_steinhardt_voronoi_needs_a12():
-    pos, m = lattice("fcc")
-    s = mt.SteinhardtBondOrientation(pos, Box(m), use_voronoi=True,
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        s.compute()
+@pytest.fixture
+def _jax_engine_of_our_own(tmp_path_factory):
+    from _native_flags import private_jax_build
+
+    undo = private_jax_build(tmp_path_factory)
+    yield
+    undo()
+
+
+def test_steinhardt_voronoi_matches_jax(_jax_engine_of_our_own):
+    """Voronoi neighbors (ROADMAP A12d), face-weighted, with the averaged
+    and w_l-hat variants and the liquid classifier."""
+    pos, m = lattice("fcc_rattled")
+    kw = dict(llist=(4, 6), use_voronoi=True, use_weight=True, average=True,
+              wlhat=True, identify_liquid=True)
+    j = mp.SteinhardtBondOrientation(pos, mp.Box(m), **kw).compute()
+    t = mt.SteinhardtBondOrientation(pos, Box(m), device="cpu", **kw).compute()
+    np.testing.assert_allclose(t.qnarray, j.qnarray, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(t.solidliquid, j.solidliquid)
+    np.testing.assert_array_equal(t.nbond, j.nbond)
 
 
 @pytest.mark.parametrize("l", [2, 4, 6, 8, 10])

@@ -453,6 +453,31 @@ def test_port_imports_no_jax():
         "wp, we, wl = water_box(3)\n"
         "w = m.System(pos=wp, box=np.eye(3) * wl, element_list=we, device='cpu')\n"
         "assert w.cal_chemical_species(['H2O'], scale=0.4, add_mol_id=True) == {'H2O': 27}\n"
+        "dz = np.sqrt(2 / 3)\n"
+        "off = {'A': (0, 0), 'B': (.5, np.sqrt(3) / 6), 'C': (1, np.sqrt(3) / 3)}\n"
+        "seq = 'ABCABCABABCABCA'\n"
+        "sp = np.array([(i + j * .5 + off[c][0], j * np.sqrt(3) / 2 + off[c][1], "
+        "k * dz) for k, c in enumerate(seq) for i in range(6) for j in range(6)])\n"
+        "sm = np.array([[6, 0, 0], [3, 3 * np.sqrt(3), 0], [0, 0, len(seq) * dz]])\n"
+        "st = m.System(pos=sp, box=m.Box(sm, [1, 1, 0]), device='cpu')\n"
+        "st.cal_polyhedral_template_matching(identify_fcc_planar_faults=True)\n"
+        "lay = np.round(sp[:, 2] / dz).astype(int)\n"
+        "assert set(np.asarray(st.data['pft'])[lay == 7]) == {2}\n"
+        "v = s.cal_voronoi_volume()\n"
+        "assert abs(v.volume.sum() / s.box.volume - 1) < 1e-12\n"
+        "s.build_voronoi_neighbor()\n"
+        "assert s.voro_verlet_list.shape[0] == 256 and s.voro_neighbor_number.min() > 8\n"
+        "q = m.SQS(s, cutoffs={2: 3.0}, n_replicas=2, max_steps=200).compute()\n"
+        "assert isinstance(q.system, m.System) and q.objective < 0.5\n"
+        "for c in ('vx', 'vy', 'vz'):\n"
+        "    s.data[c] = np.zeros(256)\n"
+        "s.set_pka(100.0, np.array([1.0, 1.0, 0.0]))\n"
+        "from mdapy_tpu_torch.core.elements import atomic_masses, atomic_numbers\n"
+        "ms = np.array([atomic_masses[atomic_numbers[e]] for e in s.data['element']])\n"
+        "assert abs(float(np.sum(ms * s.data['vx']))) < 1e-12\n"
+        "np.savetxt(os.path.join(tmp, 'thermo.out'), np.ones((3, 18)))\n"
+        "th = m.read_thermo(tmp)\n"
+        "assert len(th) == 3 and th.columns[0] == 'T'\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not {'pandas', 'pyarrow', 'polars'} & set(sys.modules)\n"
         "print('ok')\n"

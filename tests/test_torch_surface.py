@@ -84,12 +84,6 @@ RENAMED = {("utils.spline", "Spline", "evaluate_jax"): "evaluate_torch"}
 # the JAX package's _LAZY names whose modules the port has not reached,
 # by the ROADMAP step that ports them
 STEPS = {
-    ".build.sqs": "A12d",
-    ".analysis.ptm": "A12d", ".analysis.voronoi": "A12d",
-    ".analysis.identify_fcc_planar_faults": "A12d",
-    ".analysis.phonon": "A12e", ".render.visualize": "A12e",
-    ".utils.tool_function": "A12e", ".utils.potential_tool": "A12e",
-    ".utils.pigz": "A12e", ".utils.plotset": "A12e",
     ".potentials.bond_stiffness": "A9e", ".potentials.lammps": "A9e",
     ".potentials.nep4ase": "A9e", ".potentials.md_elastic": "A9e",
     ".potentials.qha_elastic": "A9e", ".potentials.elastic": "A9e",

@@ -14,9 +14,10 @@ trajectories, keeps 17 digits (ROADMAP C13): there the JAX reading is the
 value cut to those digits, and the port's equals the value written.
 Uniform bodies take the native route and a mixed one the numpy fallback,
 whose columns equal the JAX package's pandas parse.  Trajectories,
-``unwrap_trajectory``, the ``System`` state methods and every ported
-``cal_*`` (equal to the direct class call) run on the CPU; each unported
-``cal_*`` raises ``NotImplementedError`` naming its ROADMAP step.  Every
+``unwrap_trajectory``, the ``System`` state methods and every ``cal_*``
+(equal to the direct class call) run on the CPU; PTM with its planar
+faults, the Voronoi methods and ``set_pka`` equal the JAX package's
+``System``.  Every
 file here is written by the tests; none comes from the reference's input
 files (ROADMAP C2).  ``chip_smoke.py`` [IO1] and [SY1] run the same path on
 1,000,188 atoms on the card.
@@ -558,18 +559,46 @@ def test_cal_atomic_strain_equals_the_direct_call():
     assert float(np.mean(cur.data["shear_strain"])) > 1e-3
 
 
-UNPORTED = {
-    "cal_polyhedral_template_matching": ((), "A12d"),
-    "cal_voronoi_volume": ((), "A12d"),
-    "build_voronoi_neighbor": ((), "A12d"),
-    "set_pka": ((1000.0, np.array([1.0, 0, 0])), "A12e"),
+@pytest.fixture(scope="module")
+def _jax_engines_of_our_own(tmp_path_factory):
+    from _native_flags import private_jax_build
+
+    undo = private_jax_build(tmp_path_factory)
+    yield
+    undo()
+
+
+def _pka_ready(s):
+    rng = np.random.default_rng(11)
+    for c in ("vx", "vy", "vz"):
+        s.data[c] = rng.normal(0.0, 0.01, s.N)
+    s.set_pka(1000.0, np.array([1.0, 0, 0]))
+    return np.column_stack([s.data[c] for c in ("vx", "vy", "vz")])
+
+
+# the System methods of the native engines and the tool functions (ROADMAP
+# A12d, A12e): each on the port against the JAX package's System
+FORMERLY_UNPORTED = {
+    "cal_polyhedral_template_matching": lambda s: np.asarray(
+        s.cal_polyhedral_template_matching(identify_fcc_planar_faults=True)),
+    "cal_voronoi_volume": lambda s: s.cal_voronoi_volume().volume,
+    "build_voronoi_neighbor": lambda s: (s.build_voronoi_neighbor(),
+                                         s.voro_verlet_list)[1],
+    "set_pka": _pka_ready,
 }
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED))
-def test_unported_analyses_raise_naming_their_step(method):
-    args, step = UNPORTED[method]
-    s = _lattice()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {step}"):
-        getattr(s, method)(*args)
-    assert hasattr(mp.System, method)
+@pytest.mark.parametrize("method", sorted(FORMERLY_UNPORTED))
+def test_native_and_tool_methods_equal_jax(method, _jax_engines_of_our_own):
+    t = _lattice()
+    j = mp.System(pos=t.pos, box=t.box.matrix, element_list=["Cu"] * t.N)
+    got, want = FORMERLY_UNPORTED[method](t), FORMERLY_UNPORTED[method](j)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if method == "cal_voronoi_volume":
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
+        assert abs(got.sum() / t.box.volume - 1) < 1e-12
+    else:
+        assert got.tobytes() == want.tobytes()
+    if method == "cal_polyhedral_template_matching":
+        np.testing.assert_array_equal(t.data["pft"], j.data["pft"])
+        assert (got == 1).all()
