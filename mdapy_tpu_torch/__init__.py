@@ -1,7 +1,7 @@
 """mdapy_tpu_torch — the port of ``mdapy_tpu`` to PyTorch and CUDA.
 
-The port goes slice by slice beside the JAX package, which stays the
-reference it is tested against.  Ported so far, for one card:
+The port stands beside the JAX package, which stays the reference it is
+tested against, and does all that the JAX package does:
 
 * the renderer (``TachyonRender.render`` and ``render_system``) on every
   route the JAX renderer takes, its frames drawn by hand CUDA kernels for
@@ -30,6 +30,14 @@ reference it is tested against.  Ported so far, for one card:
   device) with the FCC planar faults, Voronoi cells and neighbors (their
   rows compacted on the device, for Steinhardt's ``use_voronoi``), and
   ``SQS``;
+* the elastic stacks and the wrappers: 0 K elastic constants
+  (``get_elastic_constant``, relaxed with ``FIRE``), ``BondStiffness``,
+  ``QHAElastic``, ``MDElastic``, ``LammpsPotential``, ``LammpsRunner`` and
+  ``NEP4ASE`` (which need phonopy, LAMMPS and ASE);
+* scale-out over ``torch.distributed``: ``render.distributed`` and
+  ``render.multihost`` render a frame in bands of tile rows, one band a
+  rank (NCCL on the cards, gloo on the CPU), and reduce the exact tracer's
+  gradients over the mesh;
 * the rest of the public surface: the tool functions (``set_pka``,
   ``generate_velocity``, ``split_xyz``), the potential tools (EOS,
   stacking-fault energies, thermo and OUTCAR readers, PCA, FPS), the
@@ -59,6 +67,13 @@ _LAZY = {
     "EAMGenerator": (".potentials.eam", "EAMGenerator"),
     "NEP": (".potentials.nep", "NEP"),
     "FIRE": (".potentials.minimizer", "FIRE"),
+    "get_elastic_constant": (".potentials.elastic", "get_elastic_constant"),
+    "BondStiffness": (".potentials.bond_stiffness", "BondStiffness"),
+    "LammpsPotential": (".potentials.lammps", "LammpsPotential"),
+    "LammpsRunner": (".potentials.lammps", "LammpsRunner"),
+    "NEP4ASE": (".potentials.nep4ase", "NEP4ASE"),
+    "MDElastic": (".potentials.md_elastic", "MDElastic"),
+    "QHAElastic": (".potentials.qha_elastic", "QHAElastic"),
     "CentroSymmetryParameter": (".analysis.centro_symmetry_parameter", "CentroSymmetryParameter"),
     "CommonNeighborAnalysis": (".analysis.common_neighbor_analysis", "CommonNeighborAnalysis"),
     "AcklandJonesAnalysis": (".analysis.ackland_jones_analysis", "AcklandJonesAnalysis"),

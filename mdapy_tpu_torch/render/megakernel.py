@@ -73,7 +73,7 @@ __all__ = [
     "LightStack", "OtherRecords", "build_mega_params", "hash_jitter",
     "light_row", "mega_render", "mega_render_plain", "mega_render_cuda",
     "plain_work", "count_work", "render_image_mega",
-    "render_image_mega_banded", "stack_lights",
+    "render_image_mega_banded", "render_mega_band", "stack_lights",
     "kernel_attrs", "launches", "reset_launches",
 ]
 
@@ -81,6 +81,7 @@ BIG = 1e18
 BIG_DEPTH = 1e17
 MINCONTRIB = 1.0 / 512.0
 TILE_PX = 16
+BAND_SEED_STRIDE = 9973    # a band's AA seed is seed + 9973 * band
 P = TILE_PX * TILE_PX      # pixels per tile = threads per kernel block
 CH = 128                   # candidates per chunk
 SG = 8                     # AA samples per kernel sample group
@@ -1173,8 +1174,6 @@ def render_image_mega_banded(scene, bins, lights, params, seed, *, S: int,
     rows_band = max(1, min(tiles_y, max_band_bytes // max(bytes_per_row, 1)))
     while tiles_y % rows_band:
         rows_band -= 1
-    band_h = rows_band * TILE_PX
-    params = np.asarray(params, np.float32)
     table = pack_sphere_table(scene.sph_center, scene.sph_radius,
                               scene.sph_color)
     imgs = []
@@ -1182,15 +1181,35 @@ def render_image_mega_banded(scene, bins, lights, params, seed, *, S: int,
         b0, b1 = b * rows_band * tiles_x, (b + 1) * rows_band * tiles_x
         cd = gather_chunk_data(bins.sph_chunks[b0:b1], scene.sph_center,
                                scene.sph_radius, scene.sph_color, table=table)
-        p = params.copy()
-        p[3:6] = p[3:6] + np.float32(b * band_h) * p[9:12]
-        oth = None if other is None else other._replace(
-            ooffs=other.ooffs[b0:b1], ocnt=other.ocnt[b0:b1])
-        imgs.append(render_image_mega(
-            cd, bins.sph_zmin[b0:b1], lights, p, seed + b * 9973, S=S,
-            width=width, height=band_h, tiles_x=tiles_x, tiles_y=rows_band,
-            grid_n=grid_n, eps=eps, perspective=perspective, shadows=shadows,
-            quantized=quantized, other=oth, n_peel=n_peel, peel1=peel1))
+        imgs.append(render_mega_band(
+            cd, bins.sph_zmin, lights, params, seed, b, rows_band=rows_band,
+            S=S, width=width, tiles_x=tiles_x, grid_n=grid_n, eps=eps,
+            perspective=perspective, shadows=shadows, quantized=quantized,
+            other=other, n_peel=n_peel, peel1=peel1))
     img = torch.cat(imgs, dim=0)
     pad_top = tiles_y * TILE_PX - height
     return img[pad_top:] if pad_top else img
+
+
+def render_mega_band(chunk_data, zmin, lights, params, seed, band: int, *,
+                     rows_band: int, tiles_x: int, other=None,
+                     **kw) -> torch.Tensor:
+    """Band ``band`` (counted from the bottom) of ``rows_band`` tile rows of
+    a frame -> (rows_band * 16, width, 3): ``render_image_mega`` with the
+    image plane's lower left corner moved up by ``band * band_h`` rows in
+    float32 and the AA hash seeded with ``seed + 9973 * band`` (the kernel
+    keys the hash on the band's own tile ids, which restart at 0), as the
+    JAX package's banded and sharded renders do.  ``chunk_data`` holds the
+    band's tiles alone; ``zmin`` and ``other`` (its per-tile offsets and
+    counts) are the whole frame's.  The banded render and the sharded
+    renders of ``render/distributed.py`` and ``render/multihost.py`` call
+    it, one band a call."""
+    b0, b1 = band * rows_band * tiles_x, (band + 1) * rows_band * tiles_x
+    band_h = rows_band * TILE_PX
+    p = np.array(params, np.float32)
+    p[3:6] = p[3:6] + np.float32(band * band_h) * p[9:12]
+    oth = None if other is None else other._replace(
+        ooffs=other.ooffs[b0:b1], ocnt=other.ocnt[b0:b1])
+    return render_image_mega(
+        chunk_data, zmin[b0:b1], lights, p, seed + band * BAND_SEED_STRIDE,
+        height=band_h, tiles_x=tiles_x, tiles_y=rows_band, other=oth, **kw)

@@ -340,7 +340,7 @@ def test_call_surface_matches_jax_renderer(monkeypatch, capsys):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, numpy as np\n"
+        "import sys, numpy as np, torch\n"
         "class Block:\n"
         "    # pandas, pyarrow and polars are absent on the card's machine\n"
         "    def find_spec(self, name, path=None, target=None):\n"
@@ -478,6 +478,27 @@ def test_port_imports_no_jax():
         "np.savetxt(os.path.join(tmp, 'thermo.out'), np.ones((3, 18)))\n"
         "th = m.read_thermo(tmp)\n"
         "assert len(th) == 3 and th.columns[0] == 'T'\n"
+        "cu = m.build_crystal('Cu', 'fcc', 3.615, device='cpu')\n"
+        "et = m.get_elastic_constant(cu, m.EAM(g.output_filename, device='cpu'))\n"
+        "C = et.voigt\n"
+        "assert np.allclose(C, C.T) and C[0, 0] - C[0, 1] > 0 and C[3, 3] > 0\n"
+        "bs = m.BondStiffness(m.build_crystal('Cu', 'fcc', 3.615, nx=2, ny=2, "
+        "nz=2, device='cpu'), m.EAM(g.output_filename, device='cpu'), "
+        "rc_bond=3.0, n_lattice=1, poly_order=0).compute()\n"
+        "assert bs.k_long[('Cu', 'Cu', 0)][0] > 0 and len(bs.shells) == 1\n"
+        "from mdapy_tpu_torch.render import distributed as rd, megakernel as mk\n"
+        "r = m.TachyonRender(backend='cpu', ao=False)\n"
+        "r.render(pos, col, rad, width=48, height=32)\n"
+        "fr, bins, cd, lights, params = r._accel\n"
+        "kw = dict(S=r._cfg.aa_samples + 1, width=48, height=32, "
+        "tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, grid_n=m.render.render."
+        "LIGHT_GRID, eps=r._cfg.eps, perspective=bool(fr['perspective']), "
+        "shadows=lights is not None)\n"
+        "one = mk.render_image_mega(cd, bins.sph_zmin, lights, params, 0, **kw)\n"
+        "got = rd.render_image_mega_sharded(cd, bins.sph_zmin, lights, params, "
+        "0, mesh=rd.make_mesh(1, device='cpu'), **kw)\n"
+        "assert torch.equal(got, one) and one.std() > 0.02\n"
+        "torch.distributed.destroy_process_group()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not {'pandas', 'pyarrow', 'polars'} & set(sys.modules)\n"
         "print('ok')\n"
