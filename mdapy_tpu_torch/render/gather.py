@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 __all__ = ["pack_sphere_table", "gather_chunk_data", "gather_chunk_data_banded"]
 
 
@@ -24,7 +26,9 @@ def gather_chunk_data(sph_chunks, centers, radii, colors, table=None):
         table = pack_sphere_table(centers, radii, colors)
     rec = table.to(torch.float32)[sph_chunks.clamp(min=0)]   # (nb, nchunks, CH, 8)
     rec[..., 3] = torch.where(sph_chunks >= 0, rec[..., 3], -1.0)
-    return rec.transpose(-1, -2).contiguous()
+    out = rec.transpose(-1, -2).contiguous()
+    tracing.count("accel.gather_bytes", out.nbytes)
+    return out
 
 
 def gather_chunk_data_banded(sph_chunks, centers, radii, colors,

@@ -50,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.elements import ele_radius, ele_rgb, type_rgb
 from .accel import (
     build_light_bins, build_light_records, build_screen_bins,
@@ -177,6 +178,32 @@ def _scene_aabb(scene):
     return lo.cpu().numpy(), hi.cpu().numpy()
 
 
+class _Phase:
+    """A phase of one ``render`` call, open from one reading of the clock to
+    the next: the same two readings give its ``last_timings`` entry and the
+    ends of its span (``tracing``), and its end is the next phase's
+    start."""
+
+    __slots__ = ("_renderer", "_timings", "_name", "_start", "_span")
+
+    def __init__(self, renderer, timings: dict, name: str, start_ns=None):
+        self._renderer, self._timings, self._name = renderer, timings, name
+        self._start = time.perf_counter_ns() if start_ns is None else start_ns
+        self._span = tracing.span(name, self._start)
+
+    def end(self) -> int:
+        """Waits for the card where phases are printed, then ends the
+        phase; returns the clock's reading."""
+        self._renderer._sync()
+        now = time.perf_counter_ns()
+        self._timings[self._name] = (now - self._start) * 1e-9
+        self._span.close(now)
+        return now
+
+    def next(self, name: str) -> "_Phase":
+        return _Phase(self._renderer, self._timings, name, self.end())
+
+
 class TachyonRender:
     """Ray tracer with the reference renderer's look, on PyTorch.
 
@@ -189,7 +216,12 @@ class TachyonRender:
     ``render`` fills ``last_timings`` with host seconds per phase
     ("prepare", "scene_build", "accel_build", "ao_accel_build", "trace",
     "image_out", the JAX renderer's names), the card synchronised at each
-    phase's end at those verbosities only.
+    phase's end at those verbosities only.  Under ``tracing.recording()``
+    each call is a span "render" holding a span per phase ("ao_accel_build"
+    inside "accel_build", whose ``last_timings`` entry leaves it out) and
+    the spans "scene_build/fingerprint", "image_out/fetch" (the quantizer
+    and the copy to the host) and "image_out/pack" (the RGBA array and its
+    alpha).
 
     The JAX renderer's attributes ``use_tiling`` (True; False sends every
     frame to the exact tracer) and ``use_pallas`` (False sends the frames
@@ -286,13 +318,14 @@ class TachyonRender:
                 a is b for a, b in zip(arrays, self._input_refs[0])):
             return self._scene_key, self._scene
         h = hashlib.sha1()
-        for a in arrays:
-            if a is not None:
-                _fingerprint(h, np.ascontiguousarray(a))
-            else:
-                h.update(b"none")
-        h.update(repr(geom).encode())
-        key = h.hexdigest()
+        with tracing.span("scene_build/fingerprint"):
+            for a in arrays:
+                if a is not None:
+                    _fingerprint(h, np.ascontiguousarray(a))
+                else:
+                    h.update(b"none")
+            h.update(repr(geom).encode())
+            key = h.hexdigest()
         if key != self._scene_key:
             positions, colors, radii, bonds, bond_colors, box = arrays
             bond_radius, bond_color, box_edge_radius, box_color = geom
@@ -328,14 +361,13 @@ class TachyonRender:
         the scene changes (the tables are world-space, as the JAX renderer's
         scene-keyed AO cache holds them, render.py:563-626)."""
         if scene_key != self._ao_key:
-            t0 = time.perf_counter()
+            phase = _Phase(self, self.last_timings, "ao_accel_build")
             cfg = self._cfg
             rmax = float(radii.max()) if len(radii) else 0.0
             self._ao = build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
                                        rmax, grid=LIGHT_GRID, table=table)
             self._ao_key = scene_key
-            self._sync()
-            self.last_timings["ao_accel_build"] = time.perf_counter() - t0
+            phase.end()
         return self._ao
 
     def _sync(self) -> None:
@@ -488,111 +520,110 @@ class TachyonRender:
         ``last_timings`` gets the host seconds of each phase."""
         timings: dict = {}
         self.last_timings = timings
-        t0 = time.perf_counter()
+        with tracing.span("render"):
+            phase = _Phase(self, timings, "prepare")
+            positions = np.ascontiguousarray(positions, dtype=np.float64)
+            colors = np.ascontiguousarray(colors, dtype=np.float32)
+            radii = np.ascontiguousarray(radii, dtype=np.float32)
+            if positions.ndim != 2 or positions.shape[1] != 3:
+                raise ValueError(f"positions must be (N,3), got {positions.shape}")
+            if colors.ndim != 2 or colors.shape[1] != 4:
+                raise ValueError(f"colors must be (N,4), got {colors.shape}")
+            if radii.ndim != 1:
+                raise ValueError(f"radii must be (N,), got {radii.shape}")
+            if bond_edges is not None:
+                bond_edges = np.ascontiguousarray(bond_edges, dtype=np.float64)
+                if bond_edges.ndim != 3 or bond_edges.shape[1:] != (2, 3):
+                    raise ValueError(f"bond_edges must be (K,2,3), got {bond_edges.shape}")
+                if bond_edges.shape[0] == 0:
+                    bond_edges = bond_colors = None
+            if box_edges is not None:
+                box_edges = np.ascontiguousarray(box_edges, dtype=np.float64)
+                if box_edges.shape[0] == 0:
+                    box_edges = None
+            if camera is None:
+                camera = auto_camera(
+                    positions, max_radius=float(radii.max()) if len(radii) else 0.0)
 
-        def mark(phase, start):
-            self._sync()
-            now = time.perf_counter()
-            timings[phase] = timings.get(phase, 0.0) + (now - start)
-            return now
-
-        positions = np.ascontiguousarray(positions, dtype=np.float64)
-        colors = np.ascontiguousarray(colors, dtype=np.float32)
-        radii = np.ascontiguousarray(radii, dtype=np.float32)
-        if positions.ndim != 2 or positions.shape[1] != 3:
-            raise ValueError(f"positions must be (N,3), got {positions.shape}")
-        if colors.ndim != 2 or colors.shape[1] != 4:
-            raise ValueError(f"colors must be (N,4), got {colors.shape}")
-        if radii.ndim != 1:
-            raise ValueError(f"radii must be (N,), got {radii.shape}")
-        if bond_edges is not None:
-            bond_edges = np.ascontiguousarray(bond_edges, dtype=np.float64)
-            if bond_edges.ndim != 3 or bond_edges.shape[1:] != (2, 3):
-                raise ValueError(f"bond_edges must be (K,2,3), got {bond_edges.shape}")
-            if bond_edges.shape[0] == 0:
-                bond_edges = bond_colors = None
-        if box_edges is not None:
-            box_edges = np.ascontiguousarray(box_edges, dtype=np.float64)
-            if box_edges.shape[0] == 0:
-                box_edges = None
-        if camera is None:
-            camera = auto_camera(
-                positions, max_radius=float(radii.max()) if len(radii) else 0.0)
-
-        cfg = self._cfg
-        t0 = mark("prepare", t0)
-        scene_key, entry = self._scene_for(
-            (positions, colors, radii, bond_edges, bond_colors, box_edges),
-            (float(bond_radius), tuple(bond_color), float(box_edge_radius),
-             tuple(box_color)))
-        scene = entry[0]
-        t0 = mark("scene_build", t0)
-        if not self.use_tiling or (
-                cfg.ao_enabled
-                and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES):
-            # exact AO on small scenes, and every frame without tiling,
-            # need no acceleration structure (render.py:330-341)
-            route, accel = "exact", (camera_frame(camera, int(width),
-                                                  int(height)),)
-            self._route_name, self._accel_key = route, None
-        else:
-            route, accel, other = self._accel_for(
-                scene_key, entry, camera, int(width), int(height), radii)
-            t0 = mark("accel_build", t0)
-            timings["accel_build"] -= timings.get("ao_accel_build", 0.0)
-        if route == "exact":
-            frame = accel[0]
-            with torch.no_grad():
-                img_f = render_image_exact(
-                    self._exact_scene(), frame["origin"], frame["lowleft"],
-                    frame["iplaneright"], frame["iplaneup"], frame["view"],
-                    frame["light_dir"], cfg._replace(transparency=entry[6]),
-                    int(width), int(height), bool(frame["perspective"]),
-                    self._seed)
-        elif route == "mega":
-            frame, bins, chunk_data, lights, params = accel
-            S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
-            # a translucent frame peels max_trans layers, or composites one
-            # when that is 1 (render.py:642-645)
-            peel1 = entry[6] and cfg.max_trans == 1
-            n_peel = cfg.max_trans if entry[6] and not peel1 else 1
-            kw = dict(S=S, width=int(width), height=int(height),
-                      grid_n=LIGHT_GRID, eps=cfg.eps,
-                      perspective=bool(frame["perspective"]),
-                      shadows=lights is not None, quantized=device_output,
-                      other=other, n_peel=n_peel, peel1=peel1)
-            if chunk_data is None:
-                img_f = render_image_mega_banded(
-                    scene, bins, lights, params, self._seed,
-                    max_band_bytes=RECORD_BUDGET_BYTES, **kw)
+            cfg = self._cfg
+            phase = phase.next("scene_build")
+            scene_key, entry = self._scene_for(
+                (positions, colors, radii, bond_edges, bond_colors, box_edges),
+                (float(bond_radius), tuple(bond_color), float(box_edge_radius),
+                 tuple(box_color)))
+            scene = entry[0]
+            if not self.use_tiling or (
+                    cfg.ao_enabled
+                    and scene.sph_center.shape[0] <= AO_EXACT_MAX_SPHERES):
+                phase = phase.next("trace")
+                # exact AO on small scenes, and every frame without tiling,
+                # need no acceleration structure (render.py:330-341)
+                route, accel = "exact", (camera_frame(camera, int(width),
+                                                      int(height)),)
+                self._route_name, self._accel_key = route, None
             else:
-                img_f = render_image_mega(
-                    chunk_data, bins.sph_zmin, lights, params, self._seed,
-                    tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, **kw)
-        else:
-            img_f = self._render_tiled(route, accel, other, int(width),
-                                       int(height))
-        if device_output and route != "mega":
-            img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
-                                255.0).to(torch.uint8)
-        t0 = mark("trace", t0)
-        if device_output:
-            self._print_timings()
-            return img_f
+                phase = phase.next("accel_build")
+                route, accel, other = self._accel_for(
+                    scene_key, entry, camera, int(width), int(height), radii)
+                phase = phase.next("trace")
+                timings["accel_build"] -= timings.get("ao_accel_build", 0.0)
+            if route == "exact":
+                frame = accel[0]
+                with torch.no_grad():
+                    img_f = render_image_exact(
+                        self._exact_scene(), frame["origin"], frame["lowleft"],
+                        frame["iplaneright"], frame["iplaneup"], frame["view"],
+                        frame["light_dir"], cfg._replace(transparency=entry[6]),
+                        int(width), int(height), bool(frame["perspective"]),
+                        self._seed)
+            elif route == "mega":
+                frame, bins, chunk_data, lights, params = accel
+                S = (cfg.aa_samples if cfg.aa_enabled else 0) + 1
+                # a translucent frame peels max_trans layers, or composites one
+                # when that is 1 (render.py:642-645)
+                peel1 = entry[6] and cfg.max_trans == 1
+                n_peel = cfg.max_trans if entry[6] and not peel1 else 1
+                kw = dict(S=S, width=int(width), height=int(height),
+                          grid_n=LIGHT_GRID, eps=cfg.eps,
+                          perspective=bool(frame["perspective"]),
+                          shadows=lights is not None, quantized=device_output,
+                          other=other, n_peel=n_peel, peel1=peel1)
+                if chunk_data is None:
+                    img_f = render_image_mega_banded(
+                        scene, bins, lights, params, self._seed,
+                        max_band_bytes=RECORD_BUDGET_BYTES, **kw)
+                else:
+                    img_f = render_image_mega(
+                        chunk_data, bins.sph_zmin, lights, params, self._seed,
+                        tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, **kw)
+            else:
+                img_f = self._render_tiled(route, accel, other, int(width),
+                                           int(height))
+            if device_output and route != "mega":
+                img_f = torch.clamp(torch.round(img_f * 255.0), 0.0,
+                                    255.0).to(torch.uint8)
+            if device_output:
+                phase.end()
+                self._print_timings()
+                return img_f
 
-        img = np.empty((height, width, 4), dtype=np.uint8)
-        img[:, :, :3] = quantize(img_f).cpu().numpy()
-        img[:, :, 3] = np.uint8(max(0.0, min(1.0, self._bg_a)) * 255.0 + 0.5)
-        if transparent:
-            bg = np.array(cfg.background, dtype=np.float32) * 255.0
-            diff = np.abs(img[:, :, :3].astype(np.float32) - bg).max(axis=2)
-            img[:, :, 3] = np.where(diff < 1.5, 0, 255).astype(np.uint8)
-        mark("image_out", t0)
-        self._print_timings()
-        if output_figure is not None:
-            save_image(output_figure, img)
-            return None
-        return img
+            phase = phase.next("image_out")
+            with tracing.span("image_out/fetch"):
+                rgb = quantize(img_f).cpu().numpy()
+            with tracing.span("image_out/pack"):
+                img = np.empty((height, width, 4), dtype=np.uint8)
+                img[:, :, :3] = rgb
+                img[:, :, 3] = np.uint8(max(0.0, min(1.0, self._bg_a)) * 255.0 + 0.5)
+                if transparent:
+                    bg = np.array(cfg.background, dtype=np.float32) * 255.0
+                    diff = np.abs(img[:, :, :3].astype(np.float32) - bg).max(axis=2)
+                    img[:, :, 3] = np.where(diff < 1.5, 0, 255).astype(np.uint8)
+            phase.end()
+            self._print_timings()
+            if output_figure is not None:
+                save_image(output_figure, img)
+                return None
+            return img
 
     def _print_timings(self) -> None:
         """The JAX renderer's per-render line at "timing" and "debug"."""

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
+
 __all__ = ["Scene", "build_scene", "scene_from_arrays"]
 
 FLIP = np.array([1.0, 1.0, -1.0])
@@ -123,9 +125,11 @@ def build_scene(
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
     def put(a, n, fill=0.0):
-        return torch.from_numpy(
+        t = torch.from_numpy(
             np.ascontiguousarray(_pad_to(a, n, fill).astype(np_dtype))
         ).to(device)
+        tracing.count("scene.upload_bytes", t.nbytes)
+        return t
 
     return Scene(
         sph_center=put(positions[keep], ns),
