@@ -12,8 +12,9 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero before the last line is printed):
 
-1. Build the hand kernels ``mdapy_tpu_torch/csrc/mega_render.cu`` and
-   ``tile_kernels.cu`` from the sources, one nvcc each, started together,
+1. Build the hand kernels ``mdapy_tpu_torch/csrc/mega_render.cu``,
+   ``tile_kernels.cu`` and ``image_out.cu`` from the sources, one nvcc
+   each, started together,
    and print ptxas' register and shared-memory lines, and each measured
    megakernel variant's and tile kernel's registers, spill bytes and blocks
    an SM.
@@ -352,6 +353,13 @@ D2. [A6g]'s config-4 scene at 480x270 (float32, shadows):
     relative; the gradients' cosines printed: float32 sums of per-pixel
     terms that cancel lose ~1e-3 when split in chunks), then each step in
     float64: the loss within 1e-5, every gradient's cosine at least 0.9999.
+
+9. The image out at the benchmark's main path's shape (32,000 atoms,
+   3000x3000, AA 20, shadows, host images through ``TachyonRender``), run
+   right after phase 1: the RGBA kernel's launches a host image, the host
+   image against ``image_out_plain`` byte for byte (opaque and
+   transparent), the kernel's time against its bound by bytes, the plain
+   version on the card, and the copy to the host (``image_out_phase``).
 
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
 6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1, Q1, BL1, S5, S6, V1, Q2, U1, EL1,
@@ -3747,6 +3755,102 @@ def scaleout_phases(card: str) -> dict:
     return out
 
 
+def image_out_phase(card: str) -> dict:
+    """Phase 9: the image out (``render/image_out.py``, ``csrc/image_out.cu``)
+    at the benchmark's main path's shape: a 32,000-atom FCC block (20^3
+    cells, random colours) at 3000x3000, AA 20, shadows, through
+    ``TachyonRender(backend="cuda", ao=False).render`` to a host image,
+    opaque and then transparent.  Each call's launches counted from a reset
+    just before it; each call's float frame kept, and the host image equal
+    byte for byte to ``image_out_plain`` of that frame on the CPU.  Then on
+    the last frame: the kernel's time by CUDA events (median of 20) and in
+    ``torch.profiler`` (10 launches), its bound by bytes, ``image_out_plain``
+    on the card, and the copy to the host through ``host_image`` against
+    ``rgba.cpu().numpy()`` and against fresh arrays of 27-36 MB."""
+    from mdapy_tpu_torch import TachyonRender, preset_camera
+    from mdapy_tpu_torch.render import image_out
+    from mdapy_tpu_torch.render import render as trender
+
+    width = height = 3000
+    pos, colors, radii = fcc_block(20, seed=9)
+    cam = preset_camera("perspective", pos, max_radius=1.28)
+    ren = TachyonRender(backend="cuda", ao=False, aa_samples=20,
+                        background=(0.2, 0.4, 0.6, 0.5))
+    frames = []
+
+    def spy(img_f, *args):
+        frames.append((img_f.clone(), args))
+        return real(img_f, *args)
+
+    real = trender.image_out_rgba
+    ren.render(pos, colors, radii, camera=cam, width=width, height=height)
+    frames.clear()
+    launches, imgs = [], []
+    with swapped(trender, image_out_rgba=spy):
+        for transparent in (False, True):
+            image_out.reset_launches()
+            img = ren.render(pos, colors, radii, camera=cam, width=width,
+                             height=height, transparent=transparent)
+            torch.cuda.synchronize()
+            launches.append(image_out.launches["image_out_rgba"])
+            imgs.append(img)
+    if launches != [1, 1] or len(frames) != 2:
+        fail(f"[9] the host images launched the RGBA kernel {launches} times "
+             f"over {len(frames)} image outs")
+    for img, (frame, args), what in zip(imgs, frames, ("opaque", "transparent")):
+        if frame.dtype != torch.float32 or not frame.is_cuda:
+            fail(f"[9] {what}: the frame is {frame.dtype} on {frame.device}")
+        want = image_out.image_out_plain(frame.cpu(), *args).numpy()
+        if img.shape != (height, width, 4) or not np.array_equal(img, want):
+            bad = int((img != want).any(axis=2).sum()) if img.shape == want.shape else -1
+            fail(f"[9] {what}: the host image differs from image_out_plain's "
+                 f"in {bad} pixels")
+        print(f"  [9] {what}: host image {img.shape} equal to image_out_plain's "
+              f"byte for byte; alpha values {np.unique(img[:, :, 3]).tolist()}, "
+              f"RGB std {float(img[:, :, :3].std()):.2f}")
+    if not float(imgs[0][:, :, :3].std()) > 1 or set(np.unique(imgs[1][:, :, 3])) != {0, 255}:
+        fail("[9] the frame is flat or the transparent image has no background")
+    frame, args = frames[0]
+    n_px = width * height
+    bound_ms = n_px * (12 + 4) / PEAK_BYTES * 1e3
+
+    def kernel():
+        return image_out.image_out_rgba_cuda(frame, *args)
+
+    ms = event_ms(kernel, 20)
+    prof = profile_call(lambda: [kernel() for _ in range(10)])
+    device_ms = None if prof["device_ms"] is None else prof["device_ms"] / 10
+    plain_ms = event_ms(lambda: image_out.image_out_plain(frame, *args), 5)
+    rgba = kernel()
+    fetch_ms, _ = median_ms(lambda: image_out.host_image(rgba), 5)
+    cpu_copy_ms, _ = median_ms(lambda: rgba.cpu().numpy(), 5)
+    fresh = {}
+    for mb in (27, 31, 33, 36):
+        src = torch.empty(mb * 10**6, dtype=torch.uint8, device="cuda")
+        fresh[mb], _ = median_ms(lambda: src.cpu().numpy(), 5)
+    print(f"[9] {card}: RGBA kernel on the 3000x3000 float32 frame "
+          f"{ms:.4f} ms (CUDA events, median of 20), "
+          + ("device time not measured" if device_ms is None else
+             f"{device_ms:.4f} ms a launch in torch.profiler "
+             f"({prof['launches']} launches)")
+          + f"; bound {bound_ms:.4f} ms by bytes ({n_px * 16 / 1e6:.0f} MB at "
+          f"3.35 TB/s), share {bound_ms / ms:.1%} (events); image_out_plain "
+          f"on the card {plain_ms:.3f} ms; launches a host image {launches}")
+    print(f"  [9] copy to the host: host_image {fetch_ms:.2f} ms, "
+          f"rgba.cpu().numpy() {cpu_copy_ms:.2f} ms (medians of 5); a fresh "
+          + ", ".join(f"{mb} MB {t:.2f}" for mb, t in fresh.items()) + " ms")
+    del ren, frames, frame, rgba
+    torch.cuda.empty_cache()
+    return {"name": "image_out_rgba", "route": "cuda",
+            "source": "mdapy_tpu_torch/csrc/image_out.cu",
+            "replaces": None, "launches": sum(launches),
+            "launches_per_host_image": 1, "max_abs_err": 0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "fetch_ms": fetch_ms, "cpu_copy_ms": cpu_copy_ms,
+            "fresh_copy_ms": fresh}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -3794,6 +3898,9 @@ def main() -> None:
     tile_attrs = tile_kernels.kernel_attrs()
     for name, attrs in tile_attrs.items():
         print(f"  tile kernel {name} (tiles of 3,328 rays): {attrs}")
+
+    # ---- 9. the image out at the main path's shape --------------------------
+    image_out_entry = image_out_phase(card)
 
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
@@ -4839,7 +4946,7 @@ def main() -> None:
         "relit_bound_by": b3r_by,
         "filter_kernel": tile_attrs["shadow_filter"],
         "walk_kernel": tile_attrs["shadow_walk"],
-    }]}))
+    }, image_out_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """Build and bind the hand CUDA kernels at first use.
 
 ``nvcc`` compiles each source of ``mdapy_tpu_torch/csrc/`` (``mega_render.cu``,
-``tile_kernels.cu``) for ``sm_90a`` into a shared library with a plain C
-interface, which ``ctypes`` loads.  A library lands in
+``tile_kernels.cu``, ``image_out.cu``) for ``sm_90a`` into a shared library
+with a plain C interface, which ``ctypes`` loads.  A library lands in
 ``mdapy_tpu_torch/_build/`` (git-ignored) under a name that hashes the
 source, the headers it includes and the flags, so an edited source or header
 rebuilds and an unchanged one is reused.  ``load_all`` starts every build at
@@ -22,7 +22,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 __all__ = ["KernelLibrary", "load_all", "load_mega_render",
-           "load_tile_kernels", "NVCC_FLAGS"]
+           "load_tile_kernels", "load_image_out", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,6 +46,11 @@ _HIT_ARGTYPES = (
     [_c.c_void_p] * 7                                  # o, d, tcap, zmin, chunks, best_t, rec
     + [_c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_void_p]   # nb, R, nchunks, eps, stream
 )
+_IMAGE_OUT_ARGTYPES = (
+    [_c.c_void_p, _c.c_void_p, _c.c_longlong]          # in, out, n_px
+    + [_c.c_int, _c.c_int]                             # alpha_byte, transparent
+    + [_c.c_float] * 3 + [_c.c_void_p]                 # bg0, bg1, bg2, stream
+)
 _SHADOW_ARGTYPES = (
     [_c.c_void_p] * 8                                  # uvt, cellxy, lit, lrec, offs, cnt, filt, scratch
     + [_c.c_longlong, _c.c_int, _c.c_float, _c.c_void_p]        # n, grid_n, eps, stream
@@ -60,6 +65,9 @@ _LIBRARIES = {
         "closest_hit_spheres_launch": _HIT_ARGTYPES,
         "shadow_filter_launch": _SHADOW_ARGTYPES,
         "tile_kernels_attrs": [_c.c_int, _c.c_int, _c.c_void_p],   # which, R, out
+    }),
+    "image_out": ("image_out.cu", {
+        "image_out_rgba_launch": _IMAGE_OUT_ARGTYPES,
     }),
 }
 
@@ -133,6 +141,11 @@ def load_tile_kernels() -> KernelLibrary:
     """Build (if needed) and load the tiled tracer's kernels (the chunked
     sphere closest hit and the shadow filter)."""
     return _load("tile_kernels")
+
+
+def load_image_out() -> KernelLibrary:
+    """Build (if needed) and load the image out's RGBA kernel."""
+    return _load("image_out")
 
 
 def load_all() -> dict:

@@ -57,10 +57,11 @@ from .accel import (
     gather_other_records, occluder_records, other_table,
 )
 from .camera import CameraParams, auto_camera, camera_frame, preset_camera
-from .config import RenderConfig, quantize
+from .config import RenderConfig
 from .gather import gather_chunk_data_banded
 from .geometry import bond_edges as _bond_edges
 from .geometry import box_edges as _box_edges
+from .image_out import host_image, image_out_rgba
 from .megakernel import (
     TILE_PX, OtherRecords, build_mega_params, light_row, render_image_mega,
     render_image_mega_banded, stack_lights,
@@ -219,9 +220,12 @@ class TachyonRender:
     phase's end at those verbosities only.  Under ``tracing.recording()``
     each call is a span "render" holding a span per phase ("ao_accel_build"
     inside "accel_build", whose ``last_timings`` entry leaves it out) and
-    the spans "scene_build/fingerprint", "image_out/fetch" (the quantizer
-    and the copy to the host) and "image_out/pack" (the RGBA array and its
-    alpha).
+    the spans "scene_build/fingerprint", "image_out/pack" (the RGBA image
+    built on the render device: the launch of ``csrc/image_out.cu`` on the
+    card, its plain version on the CPU) and "image_out/fetch" (the RGBA
+    image's copy to the host), and the counter "image_out.fetch_bytes"
+    (the bytes copied from the card to the host image; none under
+    ``device_output`` or on the CPU, where nothing is copied).
 
     The JAX renderer's attributes ``use_tiling`` (True; False sends every
     frame to the exact tracer) and ``use_pallas`` (False sends the frames
@@ -510,7 +514,9 @@ class TachyonRender:
         device_output: bool = False,
     ):
         """Render spheres + optional bond/box cylinders -> (H, W, 4) uint8
-        RGBA numpy (truncating quantizer).
+        RGBA numpy (truncating quantizer), a fresh array each call: the
+        image is built on the render device (``image_out.image_out_rgba``)
+        and copied to the host whole.
 
         ``device_output=True`` returns the rounded (H, W, 3) uint8 frame as
         a tensor on the render device, with no host round trip — the serving
@@ -608,16 +614,13 @@ class TachyonRender:
                 return img_f
 
             phase = phase.next("image_out")
-            with tracing.span("image_out/fetch"):
-                rgb = quantize(img_f).cpu().numpy()
+            alpha = int(np.uint8(max(0.0, min(1.0, self._bg_a)) * 255.0 + 0.5))
+            bg = (np.array(cfg.background, dtype=np.float32) * 255.0
+                  if transparent else None)
             with tracing.span("image_out/pack"):
-                img = np.empty((height, width, 4), dtype=np.uint8)
-                img[:, :, :3] = rgb
-                img[:, :, 3] = np.uint8(max(0.0, min(1.0, self._bg_a)) * 255.0 + 0.5)
-                if transparent:
-                    bg = np.array(cfg.background, dtype=np.float32) * 255.0
-                    diff = np.abs(img[:, :, :3].astype(np.float32) - bg).max(axis=2)
-                    img[:, :, 3] = np.where(diff < 1.5, 0, 255).astype(np.uint8)
+                rgba = image_out_rgba(img_f, alpha, bg)
+            with tracing.span("image_out/fetch"):
+                img = host_image(rgba)
             phase.end()
             self._print_timings()
             if output_figure is not None:

@@ -125,6 +125,29 @@ def test_counters_scene_upload_and_gather():
     assert cached not in rec.counters
 
 
+def test_image_out_spans_and_no_fetch_on_the_cpu():
+    """A host image is built in ``image_out/pack`` and handed out in
+    ``image_out/fetch``, both under ``image_out``; a ``device_output`` call
+    has no ``image_out`` phase.  On the CPU the image is already the
+    host's, so neither call counts ``image_out.fetch_bytes`` (the card's
+    copy counts H·W·4: ``tests/test_torch_image_out.py``)."""
+    pos, colors, radii = _scene()
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
+    _render(ren, pos, colors, radii)   # the scene and the view cached
+    with tracing.recording() as rec:
+        frame = _render(ren, pos, colors, radii, device_output=True)
+        img = _render(ren, pos, colors, radii)
+    on_device, host = _calls(rec).values()
+    assert isinstance(frame, torch.Tensor) and tuple(frame.shape) == (24, 32, 3)
+    assert isinstance(img, np.ndarray) and img.shape == (24, 32, 4)
+    assert "image_out" not in {s.name for s in on_device}
+    assert rec.counters == {}
+    by_id = {s.id: s for s in host}
+    out = [s for s in host if s.parent is not None
+           and by_id[s.parent].name == "image_out"]
+    assert [s.name for s in out] == ["image_out/pack", "image_out/fetch"]
+
+
 def test_a_render_that_raises_leaves_no_span_open(monkeypatch):
     """A call that raises in its trace phase closes its open spans; the
     next call is a call of its own."""
