@@ -15,8 +15,16 @@
 //     rows 0-3 (x, y, z, r) of chunk c + 1 arrive by cp.async, every thread
 //     copying two of a candidate's four values, and once its copies land
 //     each pair of lanes trades halves by a shuffle and writes the
-//     candidate's ray-independent terms (o - c and |o - c|^2 - r^2 for
-//     perspective) into the second of two buffers.  The zmin early exit is
+//     candidate's ray-independent terms (r^2 and sqrt(r^2); for
+//     perspective also o - c and the gate's (1 - 2^-18) |o - c|^2 - r^2)
+//     into the second of two buffers.  A ray takes a candidate's stable
+//     discriminant r^2 - |w|^2, w = oc - b d (b = oc.d), which keeps the
+//     hit within float32's rounding of the surface with the camera hundreds
+//     of Angstrom away, only where -b - sqrt(r^2) lies before its best t
+//     (no root comes earlier) and, for a camera ray, b^2 passes that gate:
+//     the walk's sqrt runs for the few spheres that can still win.  The
+//     result is the smallest stable root, as the plain version takes it
+//     over every candidate.  The zmin early exit is
 //     the same per-chunk test (tzmin[c] < the block max of min(best_t,
 //     tcap)); a chunk that test cannot reach is not fetched.  The block max
 //     of a chunk and the buffer swap share one barrier: each warp writes its
@@ -127,6 +135,10 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float MINCONTRIB = 1.0f / 512.0f;
 constexpr float OPAQUE_ALPHA = 0.99999f;  // an occluder at or above blocks fully
 constexpr float TRANS_FLOOR = 1e-3f;      // a walk ends at a transmission <= this
+// a camera ray takes a candidate's stable test where b^2 >= GATE |oc|^2 - r^2:
+// 2^-18 |oc|^2 below the walk's old b^2 >= |oc|^2 - r^2, far more than the
+// rounding of either side, so every sphere the stable form hits passes
+constexpr float GATE = 1.0f - 0x1p-18f;
 
 // (tile, sample, pixel) -> jitter in [-0.5, 0.5): the JAX package's int32
 // avalanche hash (megakernel.py:_hash_jitter), in wrapping uint32 arithmetic.
@@ -190,11 +202,11 @@ __device__ __forceinline__ void chunk_fetch(const float* __restrict__ ch,
 
 // Waits for this thread's copies (cp.async.wait_all makes them visible to the
 // copying thread, and only it reads them), trades halves with lane ^ 16 and
-// writes candidate j's ray-independent terms to cand (camo: every ray starts
-// at (ox, oy, oz)).
+// writes candidate j's ray-independent terms to cand and (r^2, sqrt(r^2))
+// to crr (camo: every ray starts at (ox, oy, oz)).
 __device__ __forceinline__ void chunk_stage(const float* craw, float4* cand,
-                                            bool camo, float ox, float oy,
-                                            float oz) {
+                                            float2* crr, bool camo, float ox,
+                                            float oy, float oz) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   const int j = (threadIdx.x >> 5) * 16 + (threadIdx.x & 15);
   const int row = (threadIdx.x & 16) ? 2 : 0;
@@ -203,13 +215,16 @@ __device__ __forceinline__ void chunk_stage(const float* craw, float4* cand,
   const float q1 = __shfl_xor_sync(FULL, p1, 16);
   if (row == 0) {
     const float cx = p0, cy = p1, cz = q0, r = q1;
+    const float r2 = r * r;
+    // a dead slot gets r^2 = -inf, so its discriminant is negative, and
+    // with camo a gate of +inf, which no ray passes
+    crr[j] = make_float2(r > 0.0f ? r2 : -INFINITY, sqrtf(r2));
     if (camo) {
       const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-      // a dead slot gets ccb = +inf, so its discriminant is negative
-      cand[j] = make_float4(ocx, ocy, ocz, r > 0.0f ? ccb : INFINITY);
+      const float oo = ocx * ocx + ocy * ocy + ocz * ocz;
+      cand[j] = make_float4(ocx, ocy, ocz, r > 0.0f ? oo * GATE - r2 : INFINITY);
     } else {
-      cand[j] = make_float4(cx, cy, cz, r > 0.0f ? r * r : -INFINITY);
+      cand[j] = make_float4(cx, cy, cz, 0.0f);
     }
   }
 }
@@ -729,6 +744,7 @@ mega_render_kernel(const float* __restrict__ params,
   __shared__ float sp[64];
   __shared__ float slp[AO ? MAX_LIGHTS * 16 : 1];
   __shared__ float4 cand[2][CH];
+  __shared__ float2 crr[2][CH];
   __shared__ float craw[4 * CH];
   __shared__ float red[2][NW];
   __shared__ float4 ostage[OTHER ? 4 * OCB : 1];
@@ -883,7 +899,7 @@ mega_render_kernel(const float* __restrict__ params,
         need = fmaxf(need, multi ? tcap[k] + cum[k] : tcap[k]);
       }
     }
-    if (nchunks > 0) chunk_stage(craw, cand[0], camo, ox, oy, oz);
+    if (nchunks > 0) chunk_stage(craw, cand[0], crr[0], camo, ox, oy, oz);
     need = block_max(need, red, rsel);
 
     // ---- front-to-back chunk walk, chunk c + 1 in flight while c is tested
@@ -893,27 +909,39 @@ mega_render_kernel(const float* __restrict__ params,
       // need only falls, so a chunk it does not reach now is never tested
       const bool ahead = c + 1 < nchunks && tzmin[c + 1] < need;
       if (ahead) chunk_fetch(tchunks + (size_t)(c + 1) * 8 * CH, craw);
+      // the stable discriminant r^2 - |w|^2, w = oc - b d (tracer.py:_sph):
+      // b^2 - (|oc|^2 - r^2) loses about four digits in float32 with the
+      // camera hundreds of Angstrom away, enough to pick another sphere at a
+      // seam or a silhouette and to put the hit point past eps inside its
+      // sphere.  A candidate takes it only where it can win: no root of it
+      // lies before -b - sqrt(r^2) (sqrt(disc) <= sqrt(r^2), and rounding
+      // keeps the order), so one that starts at or past the best t cannot
+      // beat it; camera rays also pass the gate first.
       const float4* cc = cand[cbuf];
+      const float2* cr = crr[cbuf];
       for (int j = 0; j < CH; ++j) {
         const float4 q = cc[j];
+        const float2 rr = cr[j];
 #pragma unroll
         for (int k = 0; k < SG; ++k) {
           if (k < ns) {
-            float b, ccb;
-            if (camo) {
-              b = q.x * rdx[k] + q.y * rdy[k] + q.z * rdz[k];
-              ccb = q.w;
-            } else {
-              const float ocx = rox[k] - q.x, ocy = roy[k] - q.y, ocz = roz[k] - q.z;
-              b = ocx * rdx[k] + ocy * rdy[k] + ocz * rdz[k];
-              ccb = ocx * ocx + ocy * ocy + ocz * ocz - q.w;
+            float ocx = q.x, ocy = q.y, ocz = q.z;
+            if (!camo) {
+              ocx = rox[k] - q.x;
+              ocy = roy[k] - q.y;
+              ocz = roz[k] - q.z;
             }
-            const float disc = b * b - ccb;
-            if (disc >= 0.0f) {
-              const float t = sphere_root(b, disc, eps);
-              if (t < bt[k]) {
-                bt[k] = t;
-                bidx[k] = c * CH + j;
+            const float b = ocx * rdx[k] + ocy * rdy[k] + ocz * rdz[k];
+            if (-b - rr.y < bt[k] && (!camo || b * b >= q.w)) {
+              const float wx = ocx - b * rdx[k], wy = ocy - b * rdy[k],
+                          wz = ocz - b * rdz[k];
+              const float disc = rr.x - (wx * wx + wy * wy + wz * wz);
+              if (disc >= 0.0f) {
+                const float t = sphere_root(b, disc, eps);
+                if (t < bt[k]) {
+                  bt[k] = t;
+                  bidx[k] = c * CH + j;
+                }
               }
             }
           }
@@ -925,7 +953,7 @@ mega_render_kernel(const float* __restrict__ params,
         if (k < ns)
           ln = fmaxf(ln, multi ? fminf(bt[k], tcap[k]) + cum[k]
                                : fminf(bt[k], tcap[k]));
-      if (ahead) chunk_stage(craw, cand[cbuf ^ 1], camo, ox, oy, oz);
+      if (ahead) chunk_stage(craw, cand[cbuf ^ 1], crr[cbuf ^ 1], camo, ox, oy, oz);
       // one barrier: the block max, chunk c + 1 published, chunk c retired
       need = block_max(ln, red, rsel);
       cbuf ^= 1;
@@ -1011,9 +1039,9 @@ mega_render_kernel(const float* __restrict__ params,
         }
         const bool missed = (bt[k] >= BIG_DEPTH) || (rw <= 0.0f);
         const float tsafe = missed ? 0.0f : bt[k];
-        const float hx = rox[k] + tsafe * rdx[k];
-        const float hy = roy[k] + tsafe * rdy[k];
-        const float hz = roz[k] + tsafe * rdz[k];
+        float hx = rox[k] + tsafe * rdx[k];
+        float hy = roy[k] + tsafe * rdy[k];
+        float hz = roz[k] + tsafe * rdz[k];
         float nx = hx - cx, ny = hy - cy, nz = hz - cz;
         if (ax.w == 1.0f) {  // cylinder: radial minus the axis part
           const float sax = nx * ax.x + ny * ax.y + nz * ax.z;
@@ -1029,6 +1057,15 @@ mega_render_kernel(const float* __restrict__ params,
         nx *= inv;
         ny *= inv;
         nz *= inv;
+        if (ax.w == 0.0f && !missed) {
+          // a sphere's hit point back on its surface along the normal: o +
+          // t d carries the rounding of t and of the camera's distance (up
+          // to 5e-5 A at 190 A), which a sky light's walk at a grazing
+          // angle reads as the sphere shadowing itself
+          hx = cx + rw * nx;
+          hy = cy + rw * ny;
+          hz = cz + rw * nz;
+        }
         const float facing = nx * rdx[k] + ny * rdy[k] + nz * rdz[k];
         const float flip = facing > 0.0f ? -1.0f : 1.0f;
         rox[k] = hx;

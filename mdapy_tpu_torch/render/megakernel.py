@@ -13,7 +13,10 @@ Per 16x16 screen tile and per AA sample the pass:
     integer hash for samples s > 0, and clips it to the scene AABB (tcap);
   * walks the tile's depth-sorted 128-wide candidate chunks front to back
     and stops at the first chunk whose ``zmin`` is not below the tile's
-    max over rays of min(best_t, tcap);
+    max over rays of min(best_t, tcap); a sphere is hit where the stable
+    discriminant r^2 - |w|^2 (w = oc - b d, b = oc.d) is >= 0, behind a
+    gate for camera rays (``_closest_hit``), and its hit point is put back
+    on its surface along the normal;
   * tests the tile's cylinder and ring records (``OtherRecords``) densely;
     one replaces the best hit only when its t is strictly smaller, so a
     sphere keeps a tie and the lowest slot wins among them;
@@ -92,6 +95,8 @@ MAX_LIGHTS = 64            # lights one launch takes (the kernel's 64-bit mask)
 PEEL_SKIP = 1e-4           # a peel p > 0 runs while a tile's largest W exceeds it
 OPAQUE_ALPHA = 0.99999     # an occluder at or above this alpha blocks fully
 TRANS_FLOOR = 1e-3         # a cell walk ends once the transmission is <= this
+GATE = 1.0 - 2.0 ** -18    # a camera ray tests a sphere's stable form where
+                           # b^2 >= GATE |oc|^2 - r^2 (_closest_hit)
 # per-block shared memory the kernel's peel state may take; past it the
 # state goes to a device buffer (mega_render_cuda)
 PEEL_SMEM_BYTES = 160 << 10
@@ -325,7 +330,7 @@ def _tcap(p, o, d):
 
 
 def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
-                 perspective: bool, cumt=None, reach=None):
+                 perspective: bool, cumt=None, reach=None, stable: bool = True):
     """Front-to-back chunk walk with the per-tile zmin early exit.
 
     ``perspective`` says every ray starts at the camera, ``o[i][0, 0]``;
@@ -333,7 +338,14 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
     each ray's camera depth so far, added to its bound in the exit test.
     ``reach`` (T,) int64, when given, gets the number of chunks each tile
     walked.  Returns best t (T, R) and the winner's flat slot c*CH + j (-1 on miss);
-    ties keep the lowest slot of the earliest chunk."""
+    ties keep the lowest slot of the earliest chunk.
+
+    Each candidate's t is the smallest root beyond eps of the stable
+    discriminant; the kernel takes it only for the candidates that can
+    still win (-b - sqrt(r^2) before the best t so far, below which no
+    root lies), to the same result.  ``stable=False`` takes b^2 - (|oc|^2
+    - r^2) instead, as the tiled tracer's kernel (``csrc/tile_kernels.cu``)
+    does."""
     T, R = tcap.shape
     nchunks = chunk_data.shape[1]
     dev = tcap.device
@@ -360,9 +372,27 @@ def _closest_hit(chunk_data, zmin, tiles, o, d, tcap, eps: float,
             ocy = o[1][act, :, None] - cy
             ocz = o[2][act, :, None] - cz
         b = ocx * dx + ocy * dy + ocz * dz
-        ccb = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-        disc = b * b - ccb
+        r2 = r * r
+        if stable:
+            # the stable discriminant r^2 - |w|^2, w = oc - b d (``tracer.py:
+            # _sph``): b^2 - (|oc|^2 - r^2) loses about four digits in
+            # float32 with the camera hundreds of Angstrom away, enough to
+            # pick another sphere at a seam or a silhouette and to put the
+            # hit point past eps inside its sphere, where a sky light's walk
+            # finds the sphere itself
+            wx = ocx - b * dx
+            wy = ocy - b * dy
+            wz = ocz - b * dz
+            disc = r2 - (wx * wx + wy * wy + wz * wz)
+        else:
+            disc = b * b - (ocx * ocx + ocy * ocy + ocz * ocz - r2)
         ok = (disc >= 0.0) & (r > 0.0)
+        if stable and perspective:
+            # the kernel's gate: b^2 against |oc|^2 - r^2 lowered by 2^-18
+            # |oc|^2, far more than either side's rounding, so it passes
+            # every sphere the stable form hits and few others
+            oo = ocx * ocx + ocy * ocy + ocz * ocz
+            ok = ok & (b * b >= oo * GATE - r2)
         sq = ieee.sqrt(torch.where(ok, disc, 0.0))
         t1 = -b - sq
         t2 = sq - b
@@ -693,6 +723,16 @@ def _light_blocked(lights, lp, l: int, h, sel, *, grid_n, eps,
                            u, v, tau, cell, eps, trans=trans)
 
 
+def _on_sphere(h, rec, n, sph):
+    """The hit points ``h`` of the sphere winners (``sph``) put back on
+    their spheres (records ``rec``) along the unit normals ``n``: o + t d
+    carries the rounding of t and of the camera's distance (up to 5e-5 A at
+    190 A), which a sky light's walk at a grazing angle reads as the sphere
+    shadowing itself.  As the kernel does it."""
+    return [torch.where(sph, rec[..., i] + rec[..., 3] * n[i], h[i])
+            for i in range(3)]
+
+
 def _surfaces(chunk_data, zmin, lights, other, p, tiles, o, d, tcap, cumt,
               *, S, grid_n, eps, camo, shadows, trans, reach=None):
     """One trace of the rays (T, R) from ``o`` along ``d``: closest hit,
@@ -732,6 +772,8 @@ def _surfaces(chunk_data, zmin, lights, other, p, tiles, o, d, tcap, cumt,
     inv = torch.rsqrt(torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2],
                                   min=1e-30))
     n = [x * inv for x in n]
+    h = _on_sphere(h, rec, n,
+                   ~missed if other is None else ~missed & (typ == 0.0))
     facing = n[0] * d[0] + n[1] * d[1] + n[2] * d[2]
     flip = torch.where(facing > 0.0, -1.0, 1.0)
     n = [x * flip for x in n]

@@ -105,16 +105,29 @@ def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
     hemisphere directions, then their opposites, each of weight 4 / (2 K2) *
     ao_brightness (``render.py:569-626``).  ``occ`` is the light's cylinder
     and ring occluder table when ``table`` (``accel.other_table``) is given,
-    else None."""
+    else None.
+
+    Every light's bins are built in the span "ao_accel_build/bins", then
+    every light's records, occluder table and row in
+    "ao_accel_build/records"; the counters "ao.lights_built" and
+    "ao.record_bytes" (the bytes of the tensors the lights keep: records,
+    CSR offsets and counts, cell key maxima, occluder tables) size the
+    build (``tracing``)."""
     k2 = max(1, int(ao_samples) // 2)
     hemi = _fib_hemisphere(k2)
     lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
+    dirs = np.concatenate([hemi, -hemi], axis=0)
+    with tracing.span("ao_accel_build/bins"):
+        bins = [build_light_bins(scene, dk, grid=grid) for dk in dirs]
     lights = []
-    for dk in np.concatenate([hemi, -hemi], axis=0):
-        lb = build_light_bins(scene, dk, grid=grid)
-        lrec = build_light_records(lb, scene)
-        occ = occluder_records(table, lb) if table is not None else None
-        lights.append((light_row(dk, lb, lightcol, rmax), *lrec, occ))
+    with tracing.span("ao_accel_build/records"):
+        for dk, lb in zip(dirs, bins):
+            lrec = build_light_records(lb, scene)
+            occ = occluder_records(table, lb) if table is not None else None
+            lights.append((light_row(dk, lb, lightcol, rmax), *lrec, occ))
+    tracing.count("ao.lights_built", len(lights))
+    tracing.count("ao.record_bytes", sum(t.nbytes for light in lights
+                                         for t in light[1:] if t is not None))
     return lights
 
 
@@ -219,8 +232,10 @@ class TachyonRender:
     "image_out", the JAX renderer's names), the card synchronised at each
     phase's end at those verbosities only.  Under ``tracing.recording()``
     each call is a span "render" holding a span per phase ("ao_accel_build"
-    inside "accel_build", whose ``last_timings`` entry leaves it out) and
-    the spans "scene_build/fingerprint", "image_out/pack" (the RGBA image
+    inside "accel_build", whose ``last_timings`` entry leaves it out, and
+    inside it "ao_accel_build/bins" and "ao_accel_build/records", with the
+    counters "ao.lights_built" and "ao.record_bytes": ``build_ao_lights``)
+    and the spans "scene_build/fingerprint", "image_out/pack" (the RGBA image
     built on the render device: the launch of ``csrc/image_out.cu`` on the
     card, its plain version on the CPU) and "image_out/fetch" (the RGBA
     image's copy to the host), and the counter "image_out.fetch_bytes"

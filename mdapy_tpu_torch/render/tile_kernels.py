@@ -111,7 +111,7 @@ def closest_hit_spheres_tiles_plain(o, d, tcap, zmin, chunk_data,
                 chunk_data, zmin, tiles,
                 tuple(o[t0:t1, lo:hi, i] for i in range(3)),
                 tuple(d[t0:t1, lo:hi, i] for i in range(3)),
-                tcap[t0:t1, lo:hi], eps, False)
+                tcap[t0:t1, lo:hi], eps, False, stable=False)
             slot = bidx.clamp(min=0)
             won = chunk_data[tiles[:, None], slot // CH, :, slot % CH]
             best_t[t0:t1, lo:hi] = bt

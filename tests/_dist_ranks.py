@@ -65,6 +65,10 @@ def _rank(rank, world, shape, inputs, store_dir):
             mega = thost.render_image_mega_hier
         out["position"] = tdist.mesh_position(mesh)
         m = inputs["mega"]
+        if m.get("jax_sphere_hit"):
+            from _jax_geometry import jax_sphere_hit
+
+            jax_sphere_hit()
         chunk_data, bins, lights, kw = _port_mega_inputs(m)
         out["mega"] = mega(chunk_data, bins.sph_zmin, lights, m["params"], 0,
                            mesh=mesh, **kw).numpy()

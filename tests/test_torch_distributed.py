@@ -55,6 +55,7 @@ from mdapy_tpu_torch.render.config import RenderConfig
 from mdapy_tpu_torch.render.convert import scene_from_numpy
 
 from _dist_ranks import _port_mega_inputs, _port_scene, run_world
+from _jax_geometry import jax_sphere_hit
 
 MW, MH, GRID = 96, 128, 48       # 6 x 8 tiles: bands of 4 and of 2 tile rows
 TOL_PIXELS, TOL_PIXEL, TOL_MEAN = 4, 1e-3, 1e-4
@@ -174,8 +175,10 @@ def _world(kind):
     import tempfile
 
     world, shape = (2, (2,)) if kind == "flat" else (4, (2, 2))
-    inputs = dict(mega=_mega(), tracer=_tracer_inputs(),
-                  grad=_grad_inputs(kind))
+    # the megakernel frames with the JAX kernel's sphere hit, as
+    # test_mega_frames_match_jax_and_the_port compares them
+    inputs = dict(mega=dict(_mega(), jax_sphere_hit=True),
+                  tracer=_tracer_inputs(), grad=_grad_inputs(kind))
     return run_world(world, shape, inputs, tempfile.mkdtemp(prefix=f"dist_{kind}_"))
 
 
@@ -206,10 +209,16 @@ def _close(a, b):
 
 
 @pytest.mark.parametrize("kind", ["flat", "hier"])
-def test_mega_frames_match_jax_and_the_port(kind):
+def test_mega_frames_match_jax_and_the_port(monkeypatch, kind):
     """Each rank's whole frame: the same on every rank, bit for bit with
     the port's one-shot frame and its banded frame of the same bands, and
-    against the JAX package's sharded frame at its tolerance."""
+    against the JAX package's sharded frame at its tolerance; the ranks and
+    the port's frames here take the JAX kernel's sphere hit
+    (``tests/_jax_geometry.py``).  (With the port's own, a band's float32
+    image-plane corner moves a ray by an ulp, and on this symmetric
+    lattice's mirror plane, where two spheres meet the ray at the same t,
+    that picks the other one.)"""
+    jax_sphere_hit(monkeypatch)
     ranks = _world(kind)
     n = len(ranks)
     assert sorted(r["position"] for r in ranks) == list(range(n))

@@ -161,7 +161,9 @@ def test_each_call_returns_a_fresh_array():
     ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=False)
     first = ren.render(pos, colors, radii, width=32, height=24)
     kept = first.copy()
-    second = ren.render(pos + 0.9, colors, radii, width=32, height=24)
+    # another picture: the colours reversed (a shifted copy of the block
+    # would not do, as the camera follows it and the frame comes out the same)
+    second = ren.render(pos, colors[::-1].copy(), radii, width=32, height=24)
     third = ren.render(pos, colors, radii, width=32, height=24)
     assert not np.array_equal(second, kept)
     np.testing.assert_array_equal(first, kept)

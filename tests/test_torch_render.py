@@ -31,6 +31,8 @@ from mdapy_tpu_torch.render.convert import (
     light_records_from_numpy, screen_bins_from_numpy,
 )
 
+from _jax_geometry import jax_sphere_hit
+
 W, H = 96, 80
 GRID = 48
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,9 +71,11 @@ def test_hash_jitter_bit_exact():
     ("top", 0, False),
     ("perspective", 2, True),      # AA on: S = 3, jitter hash bit-exact
 ])
-def test_kernel_slice_matches_interpret(preset, aa, shadows):
+def test_kernel_slice_matches_interpret(monkeypatch, preset, aa, shadows):
     """The JAX accel structures, carried over by convert.py, go through the
-    JAX megakernel (interpret mode) and the port's kernel path."""
+    JAX megakernel (interpret mode) and the port's kernel path, with the
+    JAX kernel's sphere hit (``tests/_jax_geometry.py``)."""
+    jax_sphere_hit(monkeypatch)
     pos, colors, radii = _fcc_scene()
     cam = preset_camera(preset, pos, max_radius=float(radii.max()))
     scene = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),

@@ -125,6 +125,47 @@ def test_counters_scene_upload_and_gather():
     assert cached not in rec.counters
 
 
+@pytest.mark.parametrize("box", [False, True])
+def test_ao_build_spans_and_counters(monkeypatch, box):
+    """With fast AO the sky lights' bins, then their records, are built in
+    "ao_accel_build/bins" and "ao_accel_build/records", one after the
+    other inside "ao_accel_build"; ``ao.lights_built`` counts 2 *
+    (ao_samples // 2) lights where the scene changes and none where only
+    the camera moves; ``ao.record_bytes`` is the bytes of the tensors the
+    lights keep (with the cell's edges, their occluder tables too)."""
+    monkeypatch.setattr(trender, "AO_EXACT_MAX_SPHERES", 0)
+    pos, colors, radii = _scene()
+    kw = {}
+    if box:
+        lo, hi = pos.min(axis=0) - 1.0, pos.max(axis=0) + 1.0
+        kw["box_edges"] = np.array([[[lo[0], lo[1], z], [hi[0], lo[1], z]]
+                                    for z in (lo[2], hi[2])])
+    ren = mdapy_tpu_torch.TachyonRender(backend="cpu", ao=True, ao_samples=6)
+    turned = mdapy_tpu_torch.preset_camera("top", pos, max_radius=1.28)
+    with tracing.recording() as rec:
+        _render(ren, pos, colors, radii, **kw)
+        _render(ren, pos, colors, radii, camera=turned, **kw)
+    built, moved = _calls(rec).values()
+    assert ren._route_name == "mega"
+    names = [s.name for s in built]
+    assert "ao_accel_build" in names and "ao_accel_build" not in [s.name for s in moved]
+    by_id = {s.id: s for s in built}
+    bins, records = (next(s for s in built if s.name == n) for n in (
+        "ao_accel_build/bins", "ao_accel_build/records"))
+    for s in (bins, records):
+        assert by_id[s.parent].name == "ao_accel_build"
+    assert bins.end_ns <= records.start_ns
+    lights = ren._ao
+    assert len(lights) == 6
+    assert all((light[5] is not None) == box for light in lights)
+    nbytes = sum(t.nbytes for light in lights for t in light[1:] if t is not None)
+    counted = rec.counters[built[0].call]
+    assert counted["ao.lights_built"] == 6
+    assert counted["ao.record_bytes"] == nbytes > 0
+    assert not [k for k in rec.counters.get(moved[0].call, {}) if k.startswith("ao.")]
+    assert "accel.gather_bytes" in rec.counters[moved[0].call]
+
+
 def test_image_out_spans_and_no_fetch_on_the_cpu():
     """A host image is built in ``image_out/pack`` and handed out in
     ``image_out/fetch``, both under ``image_out``; a ``device_output`` call

@@ -38,6 +38,8 @@ from mdapy_tpu_torch.render.convert import (
 )
 from mdapy_tpu_torch.render.scene import build_scene
 
+from _jax_geometry import jax_sphere_hit
+
 W, H = 96, 80
 GRID = 32
 
@@ -156,10 +158,12 @@ def _slice(bonds, preset, aa, shadows, n_peel, peel1):
     ("perspective", 2, True, 1, True),
     ("top", 2, True, 1, True),
 ])
-def test_peel_kernel_slice_matches_interpret(preset, aa, shadows, n_peel,
-                                             peel1):
+def test_peel_kernel_slice_matches_interpret(monkeypatch, preset, aa, shadows,
+                                             n_peel, peel1):
     """The sphere scene: at most 3 pixels off by more than 2e-3 in a
-    channel, mean below 2e-4 (``test_render_transparency.py:84-86``).
+    channel, mean below 2e-4 (``test_render_transparency.py:84-86``), the
+    port's plain version with the JAX kernel's sphere hit
+    (``tests/_jax_geometry.py``).
 
     With AA, n_peel 4 is held through the orthographic camera (measured 0
     pixels over 2e-3).  Through the perspective camera each sample's
@@ -169,6 +173,7 @@ def test_peel_kernel_slice_matches_interpret(preset, aa, shadows, n_peel,
     96x80 frame over 2e-3, at a mean of 3e-6, one sample of a pixel meeting
     or missing a silhouette.  S = 1 and peel1 at S = 3 stay within the
     bound through both cameras."""
+    jax_sphere_hit(monkeypatch)
     ref, img = _slice(False, preset, aa, shadows, n_peel, peel1)
     d = np.abs(img - ref)
     assert int((d.max(axis=2) > 2e-3).sum()) <= 3

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _jax_geometry import jax_sphere_hit
 from _walk_scene import walk_scene
 from mdapy_tpu.render import accel as jaccel
 from mdapy_tpu.render import megakernel as jmega
@@ -85,8 +86,12 @@ def _frames(mode, shadows):
 
 
 @pytest.mark.parametrize("mode", ["n_peel=4", "peel1", "opaque"])
-def test_long_walks_match_interpret(mode):
-    """The shadowed frames are compared where the unshadowed frames agree
+def test_long_walks_match_interpret(monkeypatch, mode):
+    """The port's plain version takes the JAX kernel's sphere hit here
+    (``tests/_jax_geometry.py``): the shadow bits of grazing-lit points
+    follow the hit point.
+
+    The shadowed frames are compared where the unshadowed frames agree
     to 1e-4 (at least 98 % of the pixels): the closest hit alone puts a few
     pixels apart, as the thin columns give many silhouettes and XLA's fused
     multiply-adds move a grazing ray's discriminant (ROADMAP C6).  There no
@@ -95,6 +100,7 @@ def test_long_walks_match_interpret(mode):
     have 10 such pixels (7 measured, each below 3.4e-3): a binary shadow bit
     that an ulp of a grazing-lit hit point flips (C6) moves its pixel by
     lightcol * n.L * 0.8 / S, a few 1e-3 where n.L is small."""
+    jax_sphere_hit(monkeypatch)
     ref0, img0, _ = _frames(mode, False)
     ref, img, work = _frames(mode, True)
     same = np.abs(img0 - ref0).max(axis=2) <= 1e-4
