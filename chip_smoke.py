@@ -23,7 +23,9 @@ Phases (any failure exits non-zero before the last line is printed):
    (b) orthographic ("top"), S = 1, shadows; (c) perspective, S = 1, no
    shadows; and with the fast-AO sky lights: (d) perspective, S = 3,
    shadows, ao_samples = 12 (13 lights); (e) orthographic, S = 1, no
-   primary shadows (its empty CSR), ao_samples = 4.  With bonds and box
+   primary shadows (its empty CSR), ao_samples = 4; each case's sky
+   lights, built in one batched pass, against the per-light build
+   (``tests/_ao_lights.py``).  With bonds and box
    edges (cylinders and rings), on a 54-atom 3x3x3 BCC block with its
    bonds and cell, as ``TachyonRender.render`` hands them to the kernel:
    (f) perspective, S = 3, shadows; (g) orthographic, S = 1, ao_samples =
@@ -820,6 +822,8 @@ def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
     extra = (trender.build_ao_lights(scene, cfg.ao_samples, cfg.ao_brightness,
                                      float(radii.max()), grid=grid)
              if cfg.ao_enabled else None)
+    if extra is not None:
+        check_sky_lights(scene, extra, cfg, float(radii.max()), grid)
     lights = None
     if cfg.shadows_enabled or extra:
         primary = (build_light_records(lb, scene) if cfg.shadows_enabled
@@ -827,6 +831,22 @@ def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
         lights = megakernel.stack_lights(params, *primary, extra_lights=extra,
                                          grid_n=grid, device=dev)
     return frame, bins, chunk_data, lights, params
+
+
+def check_sky_lights(scene, extra, cfg, rmax: float, grid: int) -> None:
+    """The sky lights ``build_ao_lights`` built in batched passes against
+    the per-light build on the same card, under ``tests/_ao_lights.py``'s
+    rules, as the CPU test ``tests/test_torch_ao_batched.py`` holds them."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _ao_lights import check_ao_lights
+
+    try:
+        n = check_ao_lights(scene, extra, cfg.ao_samples, cfg.ao_brightness,
+                            rmax, grid)
+    except AssertionError as err:
+        fail(f"the batched sky lights differ from the per-light build: {err!r}")
+    print(f"  {len(extra)} sky lights, {n} records: the batched build equals "
+          f"the per-light build")
 
 
 def translucent(colors, seed: int, share: float = 0.5, lo: float = 0.3,

@@ -18,6 +18,15 @@ Port of ``mdapy_tpu/render/accel.py``:
   * light records (``build_light_records`` :613): the CSR rows
     ``[cu, cv, ck, r, key, alpha, 0, 0]`` the shadow sweep reads, with the
     per-cell maximum key ``lkmax``;
+  * many lights' sphere cells and records at once (fast AO's sky lights,
+    ``render.build_ao_lights``; the JAX build makes them light by light):
+    ``frame_light_batch`` frames K lights in one pass and reads their
+    frames and pair counts to the host in one copy; ``bin_light_group``
+    expands and sorts a group of them in one pass, bucket light * ncells +
+    cell, and ``light_group_records`` gathers the group's records, with no
+    read from the device.  Each light's cells, records and key maxima equal
+    the per-light build's bit for bit: the projections are its
+    matrix-vector products, the sort its order;
   * cylinder and ring records (``_other_records`` :638, ``_gather_other``
     :667, ``gather_other_records`` :687): 16-float rows per primitive, the
     tiles' candidates gathered back to back, and one occluder table per
@@ -51,7 +60,9 @@ __all__ = [
     "ScreenBins", "LightBins", "LightKind", "build_screen_bins",
     "build_light_bins",
     "build_light_records", "other_table", "gather_other_records",
-    "occluder_records",
+    "occluder_records", "LightBatch", "LightGroup", "frame_light_batch",
+    "split_light_batch", "bin_light_group", "light_group_bins",
+    "light_group_records",
 ]
 
 BIG_DEPTH = 1e17
@@ -104,14 +115,17 @@ class LightBins(NamedTuple):
         return LightKind(self.ids, self.keys, self.offs, self.count)
 
 
-def _expand_pairs(x0, y0, span_w, span_h, nx: int):
+def _expand_pairs(x0, y0, span_w, span_h, nx: int, total: Optional[int] = None):
     """Spans -> (bucket, item) pairs, one pair per covered bucket.
 
     Items with an empty span contribute no pair wherever they sit in the
-    array (no offset clamp, so no fault C1)."""
+    array (no offset clamp, so no fault C1).  ``total``, the number of
+    pairs when the caller knows it, spares the expansion its read of the
+    sizes' sum."""
     sizes = span_w * span_h
     n = sizes.shape[0]
-    item = torch.repeat_interleave(torch.arange(n, device=sizes.device), sizes)
+    item = torch.repeat_interleave(torch.arange(n, device=sizes.device), sizes,
+                                   output_size=total)
     offsets = torch.cumsum(sizes, 0) - sizes
     local = torch.arange(item.shape[0], device=sizes.device) - offsets[item]
     w = span_w[item]
@@ -440,6 +454,197 @@ def build_light_records(lb: LightBins, scene):
     if lrec.shape[0]:
         lkmax = torch.where(lb.count > 0, lrec[first, 4], lkmax)
     return (lrec, lb.offs.to(torch.int32), lb.count.to(torch.int32), lkmax)
+
+
+# ---------------------------------------------------------------------------
+# many lights' sphere cells and records in one pass
+# ---------------------------------------------------------------------------
+
+# device bytes a (light, cell, sphere) pair of a batched pass holds at its
+# peak, the (K, N) projections and spans included: the int64 items, buckets
+# and sort orders, the keys, its 32-byte record (91 measured on an H100 at
+# the render demo's 2.04 M pairs)
+PAIR_BYTES = 96
+
+
+class LightBatch(NamedTuple):
+    """K directional lights framed in one pass (``frame_light_batch``):
+    what ``build_light_bins`` computes for each light before its pairs."""
+
+    L: torch.Tensor         # (K, 3) light directions
+    e1: torch.Tensor        # (K, 3) lateral bases
+    e2: torch.Tensor        # (K, 3)
+    org: torch.Tensor       # (K, 2) lateral origins (umin, vmin)
+    inv_cell: torch.Tensor  # (K,) cells per unit length
+    u: torch.Tensor         # (K, N) the spheres' c.e1
+    v: torch.Tensor         # (K, N) the spheres' c.e2
+    ck: torch.Tensor        # (K, N) the spheres' c.L
+    x0: torch.Tensor        # (K, N) int64 first cell column of each sphere
+    y0: torch.Tensor        # (K, N) int64 first cell row
+    span_w: torch.Tensor    # (K, N) int64 cells wide, 0 for a dead sphere
+    span_h: torch.Tensor    # (K, N) int64 cells high
+    pairs: np.ndarray       # (K,) int64 each light's (cell, sphere) pairs
+    frames: np.ndarray      # (K, 9) f32 each light's e1, e2, org, inv_cell
+    grid: int
+
+
+class LightGroup(NamedTuple):
+    """Lights ``lights`` of a LightBatch binned in one pass
+    (``bin_light_group``): their (cell, sphere) pairs by light, then cell,
+    then descending far key, each light's in ``build_light_bins``' order."""
+
+    lights: range
+    item: torch.Tensor    # (M,) light within the group * N + sphere id
+    key: torch.Tensor     # (M,) far key c.L + r of each pair's sphere
+    first: torch.Tensor   # (len(lights) * ncells + 1,) int64 each cell's first pair, then M
+    base: np.ndarray      # (len(lights) + 1,) each light's first pair, then M
+
+
+def frame_light_batch(scene, light_dirs, grid: int = 32) -> LightBatch:
+    """The lights' bases, grid frames and sphere spans, as
+    ``build_light_bins`` computes them for each light, and each light's
+    pair count; the frames and counts are read to the host in one copy."""
+    centers, radii = scene.sph_center, scene.sph_radius
+    dtype, dev = centers.dtype, centers.device
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    L = torch.as_tensor(np.asarray(light_dirs, np_dtype).reshape(-1, 3))
+    a = torch.zeros_like(L)
+    along_x = L[:, 0].abs() < 0.9
+    a[:, 0] = along_x.to(dtype)
+    a[:, 1] = (~along_x).to(dtype)
+    # pageable memory staged at once: the upload waits for no queued work
+    L, a = torch.stack([L, a]).to(dev, non_blocking=True)
+    e1 = torch.linalg.cross(L, a)
+    e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
+    e2 = torch.linalg.cross(L, e1)
+    # the grid is framed over every kind's bounding spheres
+    cmid = scene.cyl_base + 0.5 * scene.cyl_axis
+    clen = torch.linalg.norm(scene.cyl_axis, dim=-1)
+    cr = torch.where(scene.cyl_radius > 0, 0.5 * clen + scene.cyl_radius, -1.0)
+    allc = torch.cat([centers, cmid, scene.ring_center])
+    allr = torch.cat([radii, cr, scene.ring_rout])
+    k, n = L.shape[0], centers.shape[0]
+    pu = torch.empty((k, allc.shape[0]), dtype=dtype, device=dev)
+    pv = torch.empty_like(pu)
+    ck = torch.empty((k, n), dtype=dtype, device=dev)
+    # one matrix-vector product a light and axis, as build_light_bins takes
+    # them: a matrix product rounds the three-term dot products otherwise,
+    # and the cells must hold exactly the spheres the per-light build puts
+    # there
+    for j in range(k):
+        torch.mv(allc, e1[j], out=pu[j])
+        torch.mv(allc, e2[j], out=pv[j])
+        torch.mv(centers, L[j], out=ck[j])
+    live = allr > 0
+    big = torch.tensor(1e30, dtype=dtype, device=dev)
+    umin = torch.where(live, pu - allr, big).amin(1)
+    vmin = torch.where(live, pv - allr, big).amin(1)
+    umax = torch.where(live, pu + allr, -big).amax(1)
+    vmax = torch.where(live, pv + allr, -big).amax(1)
+    extent = torch.clamp(torch.maximum(umax - umin, vmax - vmin), min=1e-6)
+    inv_cell = grid / extent
+    u, v = pu[:, :n], pv[:, :n]
+
+    def cell_of(p):
+        return torch.clamp(torch.floor(p * inv_cell[:, None]), 0,
+                           grid - 1).to(torch.int64)
+
+    x0 = cell_of(u - radii - umin[:, None])
+    x1 = cell_of(u + radii - umin[:, None])
+    y0 = cell_of(v - radii - vmin[:, None])
+    y1 = cell_of(v + radii - vmin[:, None])
+    on = radii > 0
+    span_w = torch.where(on, x1 - x0 + 1, 0)
+    span_h = torch.where(on, y1 - y0 + 1, 0)
+    org = torch.stack([umin, vmin], 1)
+    f64 = torch.float64
+    host = torch.cat([torch.cat([e1, e2, org, inv_cell[:, None]], 1).to(f64),
+                      (span_w * span_h).sum(1, keepdim=True).to(f64)], 1)
+    host = host.cpu().numpy()
+    return LightBatch(L, e1, e2, org, inv_cell, u, v, ck, x0, y0, span_w,
+                      span_h, host[:, 9].astype(np.int64),
+                      host[:, :9].astype(np.float32), grid)
+
+
+def split_light_batch(pairs: np.ndarray, max_pairs: int) -> list:
+    """Consecutive lights in groups (ranges) of at most ``max_pairs`` pairs
+    each; a light with more takes a group alone."""
+    groups, start, held = [], 0, 0
+    for j, p in enumerate(int(p) for p in pairs):
+        if j > start and held + p > max_pairs:
+            groups.append(range(start, j))
+            start, held = j, 0
+        held += p
+    groups.append(range(start, len(pairs)))
+    return groups
+
+
+def bin_light_group(batch: LightBatch, lights: range, scene) -> LightGroup:
+    """The (cell, sphere) pairs of ``lights`` expanded and sorted in one
+    pass: by light, then cell, then descending far key, ties by sphere id
+    (``_csr_sort``'s order), with no read from the device."""
+    ks = slice(lights.start, lights.stop)
+    ncells = batch.grid * batch.grid
+    n = batch.ck.shape[1]
+    base = np.concatenate([[0], np.cumsum(batch.pairs[ks])])
+    cell, item = _expand_pairs(
+        *(t[ks].reshape(-1) for t in (batch.x0, batch.y0, batch.span_w,
+                                      batch.span_h)),
+        batch.grid, total=int(base[-1]))
+    key = (batch.ck[ks] + scene.sph_radius).reshape(-1)[item]
+    bucket = item // n * ncells + cell
+    order = torch.argsort(-key, stable=True)
+    bucket = bucket[order]
+    by_cell = torch.argsort(bucket, stable=True)
+    order = order[by_cell]
+    first = torch.searchsorted(bucket[by_cell], torch.arange(
+        len(lights) * ncells + 1, device=bucket.device))
+    return LightGroup(lights, item[order], key[order], first, base)
+
+
+def light_group_bins(batch: LightBatch, group: LightGroup, j: int) -> LightBins:
+    """Light ``j`` of ``group`` as ``build_light_bins`` gives it (spheres
+    only), in views of the group's tensors."""
+    i = j - group.lights.start
+    ncells = batch.grid * batch.grid
+    b0, b1 = int(group.base[i]), int(group.base[i + 1])
+    start = group.first[i * ncells:(i + 1) * ncells]
+    count = group.first[i * ncells + 1:(i + 1) * ncells + 1] - start
+    return LightBins(group.item[b0:b1] - i * batch.ck.shape[1], start - b0,
+                     count, batch.L[j], batch.e1[j], batch.e2[j], batch.org[j],
+                     batch.inv_cell[j], batch.grid, group.key[b0:b1])
+
+
+def light_group_records(batch: LightBatch, group: LightGroup, scene) -> list:
+    """Each light's ``build_light_records`` tuple (lrec, offs, count,
+    lkmax), gathered for the whole group at once; each tuple holds views of
+    the group's tensors, its offsets counted from its own first record."""
+    ks = slice(group.lights.start, group.lights.stop)
+    kg, ncells = len(group.lights), batch.grid * batch.grid
+    item, n = group.item, batch.ck.shape[1]
+    ids = item % n
+    cu = (batch.u[ks] - batch.org[ks, 0:1]).reshape(-1)[item]
+    cv = (batch.v[ks] - batch.org[ks, 1:2]).reshape(-1)[item]
+    ck = batch.ck[ks].reshape(-1)[item]
+    zero = torch.zeros_like(cu)
+    lrec = torch.stack(
+        [cu, cv, ck, scene.sph_radius[ids], group.key,
+         scene.sph_color[ids, 3], zero, zero], dim=1).to(torch.float32)
+    start = group.first[:-1]
+    count = group.first[1:] - start
+    lkmax = torch.full((kg * ncells,), -BIG_DEPTH, dtype=torch.float32,
+                       device=lrec.device)
+    if lrec.shape[0]:
+        lkmax = torch.where(count > 0,
+                            lrec[torch.clamp(start, max=lrec.shape[0] - 1), 4],
+                            lkmax)
+    start = start.view(kg, ncells)
+    offs = (start - start[:, :1]).to(torch.int32)
+    count = count.view(kg, ncells).to(torch.int32)
+    lkmax = lkmax.view(kg, ncells)
+    b = [int(x) for x in group.base]
+    return [(lrec[b[i]:b[i + 1]], offs[i], count[i], lkmax[i])
+            for i in range(kg)]
 
 
 # ---------------------------------------------------------------------------

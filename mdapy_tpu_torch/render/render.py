@@ -35,7 +35,9 @@ ao_samples // 2 Fibonacci hemisphere directions and their opposites, each
 with its own light-grid CSR records and cylinder/ring occluder table, join
 the primary light in the same launch, so one closest-hit traversal serves
 them all.  Their structures are world-space and keyed by the scene alone,
-so a camera move reuses them.
+so a camera move reuses them.  Where the JAX renderer builds them light by
+light, ``build_ao_lights`` builds them together, in batched passes of torch
+ops that read from the device once for a scene of spheres, to the same bits.
 
 The JAX renderer's tuning knob ``MDAPY_TPU_AO_MODE`` (exact or fast AO
 whatever the scene's size) is not ported: the sphere count alone picks.
@@ -53,8 +55,10 @@ import torch
 from .. import tracing
 from ..core.elements import ele_radius, ele_rgb, type_rgb
 from .accel import (
-    build_light_bins, build_light_records, build_screen_bins,
-    gather_other_records, occluder_records, other_table,
+    PAIR_BYTES, bin_light_group, build_light_bins, build_light_records,
+    build_screen_bins, frame_light_batch, gather_other_records,
+    light_group_bins, light_group_records, occluder_records, other_table,
+    split_light_batch,
 )
 from .camera import CameraParams, auto_camera, camera_frame, preset_camera
 from .config import RenderConfig
@@ -63,7 +67,7 @@ from .geometry import bond_edges as _bond_edges
 from .geometry import box_edges as _box_edges
 from .image_out import host_image, image_out_rgba
 from .megakernel import (
-    TILE_PX, OtherRecords, build_mega_params, light_row, render_image_mega,
+    TILE_PX, OtherRecords, build_mega_params, render_image_mega,
     render_image_mega_banded, stack_lights,
 )
 from .scene import build_scene
@@ -79,6 +83,10 @@ LIGHT_GRID = 32        # shadow grid cells per side, as the JAX renderer uses
 # gathering at most this much (render_image_mega_banded), and
 # render_image_pallas gathers each of its bands' records
 RECORD_BUDGET_BYTES = 16 << 30
+# bytes of transient (light, cell, sphere) pair data one pass of
+# build_ao_lights may hold (accel.PAIR_BYTES a pair); past it the sky lights
+# are binned in groups of consecutive lights, each within it
+AO_BATCH_BUDGET_BYTES = 1 << 30
 # padded sphere counts up to this take the exact AO tracer; fast AO applies
 # above it (render.py:330-334)
 AO_EXACT_MAX_SPHERES = 20000
@@ -107,24 +115,43 @@ def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
     and ring occluder table when ``table`` (``accel.other_table``) is given,
     else None.
 
-    Every light's bins are built in the span "ao_accel_build/bins", then
-    every light's records, occluder table and row in
-    "ao_accel_build/records"; the counters "ao.lights_built" and
-    "ao.record_bytes" (the bytes of the tensors the lights keep: records,
-    CSR offsets and counts, cell key maxima, occluder tables) size the
-    build (``tracing``)."""
+    The lights are built together, equal to what ``build_light_bins``,
+    ``build_light_records`` and ``light_row`` give each alone: one pass
+    frames every light and reads their frames and pair counts to the host
+    (``accel.frame_light_batch``), then the lights are binned and their
+    records gathered in groups of at most ``AO_BATCH_BUDGET_BYTES`` of
+    transient pair data (one group at the render demo's size), each group in
+    one pass of torch ops with no read from the device.  Each entry's
+    tensors are views into its group's, its ``loffs`` counted from its own
+    first record.
+
+    The frames and each group's bins are built in spans
+    "ao_accel_build/bins", each group's records, occluder tables and rows
+    in "ao_accel_build/records"; the counters "ao.lights_built",
+    "ao.light_batches" (the groups) and "ao.record_bytes" (the bytes of the
+    tensors the lights keep: records, CSR offsets and counts, cell key
+    maxima, occluder tables) size the build (``tracing``)."""
     k2 = max(1, int(ao_samples) // 2)
     hemi = _fib_hemisphere(k2)
-    lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
     dirs = np.concatenate([hemi, -hemi], axis=0)
     with tracing.span("ao_accel_build/bins"):
-        bins = [build_light_bins(scene, dk, grid=grid) for dk in dirs]
+        batch = frame_light_batch(scene, dirs, grid)
+    rows = np.zeros((len(dirs), 16), np.float32)    # light_row's layout
+    rows[:, 0:3] = dirs
+    rows[:, 3:12] = batch.frames
+    rows[:, 12] = (4.0 / (2 * k2)) * float(ao_brightness)
+    rows[:, 13] = rmax
     lights = []
-    with tracing.span("ao_accel_build/records"):
-        for dk, lb in zip(dirs, bins):
-            lrec = build_light_records(lb, scene)
-            occ = occluder_records(table, lb) if table is not None else None
-            lights.append((light_row(dk, lb, lightcol, rmax), *lrec, occ))
+    for members in split_light_batch(batch.pairs,
+                                     AO_BATCH_BUDGET_BYTES // PAIR_BYTES):
+        with tracing.span("ao_accel_build/bins"):
+            group = bin_light_group(batch, members, scene)
+        with tracing.span("ao_accel_build/records"):
+            for j, rec in zip(members, light_group_records(batch, group, scene)):
+                occ = (occluder_records(table, light_group_bins(batch, group, j))
+                       if table is not None else None)
+                lights.append((rows[j], *rec, occ))
+        tracing.count("ao.light_batches", 1)
     tracing.count("ao.lights_built", len(lights))
     tracing.count("ao.record_bytes", sum(t.nbytes for light in lights
                                          for t in light[1:] if t is not None))
@@ -234,7 +261,8 @@ class TachyonRender:
     each call is a span "render" holding a span per phase ("ao_accel_build"
     inside "accel_build", whose ``last_timings`` entry leaves it out, and
     inside it "ao_accel_build/bins" and "ao_accel_build/records", with the
-    counters "ao.lights_built" and "ao.record_bytes": ``build_ao_lights``)
+    counters "ao.lights_built", "ao.light_batches" and "ao.record_bytes":
+    ``build_ao_lights``)
     and the spans "scene_build/fingerprint", "image_out/pack" (the RGBA image
     built on the render device: the launch of ``csrc/image_out.cu`` on the
     card, its plain version on the CPU) and "image_out/fetch" (the RGBA

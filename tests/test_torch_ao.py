@@ -155,7 +155,8 @@ def test_ao_kernel_slice_matches_interpret(preset, aa, shadows):
 @pytest.mark.parametrize("k", range(12))
 def test_ao_light_records_match(k):
     """Light bins, records and rows for each of the 12 sky directions of
-    ao_samples=12, upward and downward."""
+    ao_samples=12, upward and downward: the port's per-light build and its
+    batched build (``build_ao_lights``) against the JAX build."""
     pos, colors, radii = _fcc_scene()
     jscene = _jscene(pos, colors, radii)
     tscene = build_scene(pos, colors, radii, device="cpu")
@@ -174,9 +175,29 @@ def test_ao_light_records_match(k):
         o, n = int(tlb.offs[c]), int(tlb.count[c])
         assert set(tlb.ids[o:o + n].tolist()) == set(jcand[c, :jcount[c]].tolist())
 
-    jrec, joffs, jcnt, jkmax = light_records_from_numpy(
+    jrecords = light_records_from_numpy(
         *jaccel.build_light_records(jlb, jscene), device="cpu")
-    trec, toffs, tcnt, tkmax = taccel.build_light_records(tlb, tscene)
+    _match_jax_records(taccel.build_light_records(tlb, tscene), jrecords)
+
+    # the batched build's sky light (records and row) against the JAX
+    # build's and the JAX front end's row (render.py:615-621)
+    frame = camera_frame(preset_camera("perspective", pos, max_radius=1.28),
+                         W, H)
+    cfg = RenderConfig(ao_samples=12, ao_enabled=True)
+    jrow = _jax_ao_lights(jscene, frame, np.zeros(3), np.ones(3), cfg,
+                          1.28)[k][0]
+    trow, *trecords, _ = trender.build_ao_lights(
+        tscene, 12, cfg.ao_brightness, 1.28, grid=GRID)[k]
+    _match_jax_records(trecords, jrecords)
+    np.testing.assert_allclose(trow, jrow, rtol=1e-5, atol=1e-5)
+
+
+def _match_jax_records(port, jax_records):
+    """A light's (lrec, offs, count, lkmax) against the JAX build's: counts
+    and offsets exactly, keys non-increasing in each cell, each cell's rows
+    and the cell key maxima within 1e-5."""
+    trec, toffs, tcnt, tkmax = port
+    jrec, joffs, jcnt, jkmax = jax_records
     np.testing.assert_array_equal(tcnt.numpy(), jcnt.numpy())
     np.testing.assert_array_equal(toffs.numpy(), joffs.numpy())
     np.testing.assert_allclose(tkmax.numpy(), jkmax.numpy(), rtol=1e-5,
@@ -191,16 +212,6 @@ def test_ao_light_records_match(k):
         to = np.lexsort((tr[:, 1], tr[:, 0], tr[:, 4]))
         jo = np.lexsort((jr[:, 1], jr[:, 0], jr[:, 4]))
         np.testing.assert_allclose(tr[to, :6], jr[jo, :6], rtol=1e-5, atol=1e-5)
-
-    # the port's sky-light row against the JAX front end's (render.py:615-621)
-    frame = camera_frame(preset_camera("perspective", pos, max_radius=1.28),
-                         W, H)
-    cfg = RenderConfig(ao_samples=12, ao_enabled=True)
-    jrow = _jax_ao_lights(jscene, frame, np.zeros(3), np.ones(3), cfg,
-                          1.28)[k][0]
-    trow = trender.build_ao_lights(tscene, 12, cfg.ao_brightness, 1.28,
-                                   grid=GRID)[k][0]
-    np.testing.assert_allclose(trow, jrow, rtol=1e-5, atol=1e-5)
 
 
 def test_ao_render_matches_jax_renderer(monkeypatch):

@@ -129,10 +129,12 @@ def test_counters_scene_upload_and_gather():
 def test_ao_build_spans_and_counters(monkeypatch, box):
     """With fast AO the sky lights' bins, then their records, are built in
     "ao_accel_build/bins" and "ao_accel_build/records", one after the
-    other inside "ao_accel_build"; ``ao.lights_built`` counts 2 *
-    (ao_samples // 2) lights where the scene changes and none where only
-    the camera moves; ``ao.record_bytes`` is the bytes of the tensors the
-    lights keep (with the cell's edges, their occluder tables too)."""
+    other inside "ao_accel_build" (the frames and the one group's bins
+    before its records); ``ao.lights_built`` counts 2 * (ao_samples // 2)
+    lights and ``ao.light_batches`` one batched pass where the scene
+    changes, neither where only the camera moves; ``ao.record_bytes`` is
+    the bytes of the tensors the lights keep (with the cell's edges, their
+    occluder tables too)."""
     monkeypatch.setattr(trender, "AO_EXACT_MAX_SPHERES", 0)
     pos, colors, radii = _scene()
     kw = {}
@@ -150,17 +152,19 @@ def test_ao_build_spans_and_counters(monkeypatch, box):
     names = [s.name for s in built]
     assert "ao_accel_build" in names and "ao_accel_build" not in [s.name for s in moved]
     by_id = {s.id: s for s in built}
-    bins, records = (next(s for s in built if s.name == n) for n in (
+    bins, records = ([s for s in built if s.name == n] for n in (
         "ao_accel_build/bins", "ao_accel_build/records"))
-    for s in (bins, records):
+    assert len(bins) == 2 and len(records) == 1
+    for s in bins + records:
         assert by_id[s.parent].name == "ao_accel_build"
-    assert bins.end_ns <= records.start_ns
+    assert max(s.end_ns for s in bins) <= records[0].start_ns
     lights = ren._ao
     assert len(lights) == 6
     assert all((light[5] is not None) == box for light in lights)
     nbytes = sum(t.nbytes for light in lights for t in light[1:] if t is not None)
     counted = rec.counters[built[0].call]
     assert counted["ao.lights_built"] == 6
+    assert counted["ao.light_batches"] == 1
     assert counted["ao.record_bytes"] == nbytes > 0
     assert not [k for k in rec.counters.get(moved[0].call, {}) if k.startswith("ao.")]
     assert "accel.gather_bytes" in rec.counters[moved[0].call]
