@@ -24,7 +24,7 @@ Phases (any failure exits non-zero before the last line is printed):
    shadows; and with the fast-AO sky lights: (d) perspective, S = 3,
    shadows, ao_samples = 12 (13 lights); (e) orthographic, S = 1, no
    primary shadows (its empty CSR), ao_samples = 4; each case's sky
-   lights, built in one batched pass, against the per-light build
+   lights, built in one batched pass, against each light built alone
    (``tests/_ao_lights.py``).  With bonds and box
    edges (cylinders and rings), on a 54-atom 3x3x3 BCC block with its
    bonds and cell, as ``TachyonRender.render`` hands them to the kernel:
@@ -835,7 +835,7 @@ def prepare_sphere_frame(dev, pos, colors, radii, cam, width, height, cfg,
 
 def check_sky_lights(scene, extra, cfg, rmax: float, grid: int) -> None:
     """The sky lights ``build_ao_lights`` built in batched passes against
-    the per-light build on the same card, under ``tests/_ao_lights.py``'s
+    each light built alone on the same card, under ``tests/_ao_lights.py``'s
     rules, as the CPU test ``tests/test_torch_ao_batched.py`` holds them."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from _ao_lights import check_ao_lights
@@ -844,9 +844,10 @@ def check_sky_lights(scene, extra, cfg, rmax: float, grid: int) -> None:
         n = check_ao_lights(scene, extra, cfg.ao_samples, cfg.ao_brightness,
                             rmax, grid)
     except AssertionError as err:
-        fail(f"the batched sky lights differ from the per-light build: {err!r}")
+        fail(f"the batched sky lights differ from each light built alone: "
+             f"{err!r}")
     print(f"  {len(extra)} sky lights, {n} records: the batched build equals "
-          f"the per-light build")
+          f"each light built alone")
 
 
 def translucent(colors, seed: int, share: float = 0.5, lo: float = 0.3,

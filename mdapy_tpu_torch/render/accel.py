@@ -18,15 +18,16 @@ Port of ``mdapy_tpu/render/accel.py``:
   * light records (``build_light_records`` :613): the CSR rows
     ``[cu, cv, ck, r, key, alpha, 0, 0]`` the shadow sweep reads, with the
     per-cell maximum key ``lkmax``;
-  * many lights' sphere cells and records at once (fast AO's sky lights,
-    ``render.build_ao_lights``; the JAX build makes them light by light):
-    ``frame_light_batch`` frames K lights in one pass and reads their
-    frames and pair counts to the host in one copy; ``bin_light_group``
-    expands and sorts a group of them in one pass, bucket light * ncells +
-    cell, and ``light_group_records`` gathers the group's records, with no
-    read from the device.  Each light's cells, records and key maxima equal
-    the per-light build's bit for bit: the projections are its
-    matrix-vector products, the sort its order;
+  * one build for every light, K lights at a time (the JAX build makes
+    them light by light): ``frame_light_batch`` frames K lights in one pass
+    and reads their frames and pair counts to the host in one copy;
+    ``bin_light_group`` expands and sorts a group of them in one pass,
+    bucket light * ncells + cell, and ``light_group_records`` gathers the
+    group's records, with no read from the device.  The primary light is a
+    batch of one (``build_light_bins``, ``build_light_records``), fast AO's
+    sky lights a batch of K (``render.build_ao_lights``); a light's cells
+    and records do not depend on the lights built beside it.
+    ``light_rows`` packs the lights' rows for the megakernel;
   * cylinder and ring records (``_other_records`` :638, ``_gather_other``
     :667, ``gather_other_records`` :687): 16-float rows per primitive, the
     tiles' candidates gathered back to back, and one occluder table per
@@ -62,7 +63,7 @@ __all__ = [
     "build_light_records", "other_table", "gather_other_records",
     "occluder_records", "LightBatch", "LightGroup", "frame_light_batch",
     "split_light_batch", "bin_light_group", "light_group_bins",
-    "light_group_records",
+    "light_group_records", "light_rows",
 ]
 
 BIG_DEPTH = 1e17
@@ -109,6 +110,11 @@ class LightBins(NamedTuple):
     # when not asked for (the megakernel reads the spheres' only)
     cyl: Optional[LightKind] = None
     ring: Optional[LightKind] = None
+    # (9,) f32 host frame [e1, e2, org, inv_cell], as its pass read it
+    frame: Optional[np.ndarray] = None
+    # (LightBatch, LightGroup, light) of the pass that built it, which
+    # build_light_records gathers from
+    source: Optional[tuple] = None
 
     @property
     def sph(self) -> LightKind:
@@ -356,110 +362,6 @@ def build_screen_bins(scene, frame, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 
-def _light_frame(centers, radii, L):
-    """Lateral basis (e1, e2) and the live spheres' lateral bounds."""
-    if bool(L[0].abs() < 0.9):
-        a = torch.tensor([1.0, 0.0, 0.0], dtype=L.dtype, device=L.device)
-    else:
-        a = torch.tensor([0.0, 1.0, 0.0], dtype=L.dtype, device=L.device)
-    e1 = torch.linalg.cross(L, a)
-    e1 = e1 / torch.linalg.norm(e1)
-    e2 = torch.linalg.cross(L, e1)
-    u = centers @ e1
-    v = centers @ e2
-    live = radii > 0
-    big = torch.tensor(1e30, dtype=centers.dtype, device=centers.device)
-    umin = torch.where(live, u - radii, big).min()
-    vmin = torch.where(live, v - radii, big).min()
-    umax = torch.where(live, u + radii, -big).max()
-    vmax = torch.where(live, v + radii, -big).max()
-    extent = torch.clamp(torch.maximum(umax - umin, vmax - vmin), min=1e-6)
-    return e1, e2, umin, vmin, extent
-
-
-def _light_spans(centers, radii, e1, e2, umin, vmin, inv_cell, grid: int):
-    u = centers @ e1
-    v = centers @ e2
-
-    def cell_of(p):
-        return torch.clamp(torch.floor(p * inv_cell), 0, grid - 1).to(torch.int64)
-
-    x0 = cell_of(u - radii - umin)
-    x1 = cell_of(u + radii - umin)
-    y0 = cell_of(v - radii - vmin)
-    y1 = cell_of(v + radii - vmin)
-    live = radii > 0
-    return x0, y0, torch.where(live, x1 - x0 + 1, 0), torch.where(live, y1 - y0 + 1, 0)
-
-
-def build_light_bins(scene, light_dir, grid: int = 32,
-                     other_kinds: bool = False) -> LightBins:
-    """Light-grid cells -> sphere ids sorted by descending far key c.L + r.
-
-    The grid is framed over every kind's bounding spheres (cylinder
-    midpoints with half-length + radius, rings with their outer radius), as
-    in the JAX build (accel.py:533-539).  With ``other_kinds`` the cylinders
-    and rings are binned too, by those bounding spheres (accel.py:544-560)."""
-    centers, radii = scene.sph_center, scene.sph_radius
-    np_dtype = torch.empty((), dtype=centers.dtype).numpy().dtype
-    L = torch.as_tensor(np.asarray(light_dir, np_dtype), device=centers.device)
-    cmid = scene.cyl_base + 0.5 * scene.cyl_axis
-    clen = torch.linalg.norm(scene.cyl_axis, dim=-1)
-    cr = torch.where(scene.cyl_radius > 0, 0.5 * clen + scene.cyl_radius, -1.0)
-    e1, e2, umin, vmin, extent = _light_frame(
-        torch.cat([centers, cmid, scene.ring_center]),
-        torch.cat([radii, cr, scene.ring_rout]), L)
-    inv_cell = grid / extent
-
-    def kind(c, r) -> LightKind:
-        x0, y0, sw, sh = _light_spans(c, r, e1, e2, umin, vmin, inv_cell, grid)
-        cell, item = _expand_pairs(x0, y0, sw, sh, grid)
-        key = (c @ L) + r
-        _, ids, nkey, count, offs = _csr_sort(cell, item, -key[item], grid * grid)
-        return LightKind(ids, -nkey, offs, count)
-
-    sph = kind(centers, radii)
-    cyl = ring = None
-    if other_kinds:
-        cyl = kind(cmid, cr)
-        ring = kind(scene.ring_center, scene.ring_rout)
-    return LightBins(sph.ids, sph.offs, sph.count, L, e1, e2,
-                     torch.stack([umin, vmin]), inv_cell, grid, sph.keys,
-                     cyl, ring)
-
-
-def build_light_records(lb: LightBins, scene):
-    """CSR shadow records for the kernel's sweep.
-
-    Returns (lrec (M, 8) f32 rows [cu, cv, ck, r, key, alpha, 0, 0],
-    offs (ncells,) i32, count (ncells,) i32, lkmax (ncells,) f32), where
-    (cu, cv) are lateral light-space coordinates, ck = c.L and
-    key = ck + r; rows run by descending key within each cell, and lkmax is
-    each cell's largest key (-BIG_DEPTH for an empty cell)."""
-    # project every sphere, then gather: the same arithmetic as the bins'
-    # sort key, so the stored keys are exactly non-increasing in each cell
-    centers, ids = scene.sph_center, lb.ids
-    cu = (centers @ lb.e1)[ids] - lb.org[0]
-    cv = (centers @ lb.e2)[ids] - lb.org[1]
-    ck = (centers @ lb.L)[ids]
-    r = scene.sph_radius[ids]
-    key = ck + r
-    zero = torch.zeros_like(cu)
-    lrec = torch.stack(
-        [cu, cv, ck, r, key, scene.sph_color[ids, 3], zero, zero], dim=1
-    ).to(torch.float32).contiguous()
-    first = torch.clamp(lb.offs, max=max(lrec.shape[0] - 1, 0))
-    lkmax = torch.full((lb.count.shape[0],), -BIG_DEPTH, dtype=torch.float32,
-                       device=lrec.device)
-    if lrec.shape[0]:
-        lkmax = torch.where(lb.count > 0, lrec[first, 4], lkmax)
-    return (lrec, lb.offs.to(torch.int32), lb.count.to(torch.int32), lkmax)
-
-
-# ---------------------------------------------------------------------------
-# many lights' sphere cells and records in one pass
-# ---------------------------------------------------------------------------
-
 # device bytes a (light, cell, sphere) pair of a batched pass holds at its
 # peak, the (K, N) projections and spans included: the int64 items, buckets
 # and sort orders, the keys, its 32-byte record (91 measured on an H100 at
@@ -468,42 +370,51 @@ PAIR_BYTES = 96
 
 
 class LightBatch(NamedTuple):
-    """K directional lights framed in one pass (``frame_light_batch``):
-    what ``build_light_bins`` computes for each light before its pairs."""
+    """K directional lights framed in one pass (``frame_light_batch``).
+
+    Its bounds are the bounding spheres of every kind: the spheres, then
+    the cylinders, then the rings (``kinds``); each bound is projected and
+    spanned on each light's grid."""
 
     L: torch.Tensor         # (K, 3) light directions
     e1: torch.Tensor        # (K, 3) lateral bases
     e2: torch.Tensor        # (K, 3)
     org: torch.Tensor       # (K, 2) lateral origins (umin, vmin)
     inv_cell: torch.Tensor  # (K,) cells per unit length
-    u: torch.Tensor         # (K, N) the spheres' c.e1
-    v: torch.Tensor         # (K, N) the spheres' c.e2
-    ck: torch.Tensor        # (K, N) the spheres' c.L
-    x0: torch.Tensor        # (K, N) int64 first cell column of each sphere
-    y0: torch.Tensor        # (K, N) int64 first cell row
-    span_w: torch.Tensor    # (K, N) int64 cells wide, 0 for a dead sphere
-    span_h: torch.Tensor    # (K, N) int64 cells high
-    pairs: np.ndarray       # (K,) int64 each light's (cell, sphere) pairs
+    u: torch.Tensor         # (K, B) the bounds' c.e1
+    v: torch.Tensor         # (K, B) the bounds' c.e2
+    ck: torch.Tensor        # (K, B) the bounds' c.L
+    r: torch.Tensor         # (B,) the bounds' radii, <= 0 for a dead one
+    x0: torch.Tensor        # (K, B) int64 first cell column of each bound
+    y0: torch.Tensor        # (K, B) int64 first cell row
+    span_w: torch.Tensor    # (K, B) int64 cells wide, 0 for a dead bound
+    span_h: torch.Tensor    # (K, B) int64 cells high
+    pairs: np.ndarray       # (K, 3) int64 each light's pairs of each kind
     frames: np.ndarray      # (K, 9) f32 each light's e1, e2, org, inv_cell
     grid: int
+    kinds: tuple            # (0, N, N + Nc, B): where each kind's bounds start
 
 
 class LightGroup(NamedTuple):
     """Lights ``lights`` of a LightBatch binned in one pass
-    (``bin_light_group``): their (cell, sphere) pairs by light, then cell,
-    then descending far key, each light's in ``build_light_bins``' order."""
+    (``bin_light_group``), one kind of bound: their (cell, item) pairs by
+    light, then cell, then descending far key, ties by item id."""
 
     lights: range
-    item: torch.Tensor    # (M,) light within the group * N + sphere id
-    key: torch.Tensor     # (M,) far key c.L + r of each pair's sphere
+    kind: int             # 0 spheres, 1 cylinders, 2 rings
+    item: torch.Tensor    # (M,) light within the group * the kind's count + id
+    key: torch.Tensor     # (M,) far key c.L + r of each pair's bound
     first: torch.Tensor   # (len(lights) * ncells + 1,) int64 each cell's first pair, then M
     base: np.ndarray      # (len(lights) + 1,) each light's first pair, then M
 
 
 def frame_light_batch(scene, light_dirs, grid: int = 32) -> LightBatch:
-    """The lights' bases, grid frames and sphere spans, as
-    ``build_light_bins`` computes them for each light, and each light's
-    pair count; the frames and counts are read to the host in one copy."""
+    """The lights' bases and grids, each grid framed over every kind's
+    bounding spheres (cylinder midpoints with half-length + radius, rings
+    with their outer radius; the JAX build's accel.py:533-539), the bounds'
+    projections and cell spans, and each light's pair count of each kind.
+    The frames and counts are read to the host in one copy, the light-grid
+    build's only read from the device."""
     centers, radii = scene.sph_center, scene.sph_radius
     dtype, dev = centers.dtype, centers.device
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -517,53 +428,52 @@ def frame_light_batch(scene, light_dirs, grid: int = 32) -> LightBatch:
     e1 = torch.linalg.cross(L, a)
     e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
     e2 = torch.linalg.cross(L, e1)
-    # the grid is framed over every kind's bounding spheres
     cmid = scene.cyl_base + 0.5 * scene.cyl_axis
     clen = torch.linalg.norm(scene.cyl_axis, dim=-1)
     cr = torch.where(scene.cyl_radius > 0, 0.5 * clen + scene.cyl_radius, -1.0)
     allc = torch.cat([centers, cmid, scene.ring_center])
     allr = torch.cat([radii, cr, scene.ring_rout])
-    k, n = L.shape[0], centers.shape[0]
-    pu = torch.empty((k, allc.shape[0]), dtype=dtype, device=dev)
-    pv = torch.empty_like(pu)
-    ck = torch.empty((k, n), dtype=dtype, device=dev)
-    # one matrix-vector product a light and axis, as build_light_bins takes
-    # them: a matrix product rounds the three-term dot products otherwise,
-    # and the cells must hold exactly the spheres the per-light build puts
-    # there
+    k, n, nc = L.shape[0], centers.shape[0], cmid.shape[0]
+    u = torch.empty((k, allc.shape[0]), dtype=dtype, device=dev)
+    v = torch.empty_like(u)
+    ck = torch.empty_like(u)
+    # one matrix-vector product a light and axis: a matrix product rounds
+    # the three-term dot products otherwise, and a light's cells must not
+    # depend on the lights built beside it
     for j in range(k):
-        torch.mv(allc, e1[j], out=pu[j])
-        torch.mv(allc, e2[j], out=pv[j])
-        torch.mv(centers, L[j], out=ck[j])
+        torch.mv(allc, e1[j], out=u[j])
+        torch.mv(allc, e2[j], out=v[j])
+        torch.mv(allc, L[j], out=ck[j])
     live = allr > 0
     big = torch.tensor(1e30, dtype=dtype, device=dev)
-    umin = torch.where(live, pu - allr, big).amin(1)
-    vmin = torch.where(live, pv - allr, big).amin(1)
-    umax = torch.where(live, pu + allr, -big).amax(1)
-    vmax = torch.where(live, pv + allr, -big).amax(1)
+    umin = torch.where(live, u - allr, big).amin(1)
+    vmin = torch.where(live, v - allr, big).amin(1)
+    umax = torch.where(live, u + allr, -big).amax(1)
+    vmax = torch.where(live, v + allr, -big).amax(1)
     extent = torch.clamp(torch.maximum(umax - umin, vmax - vmin), min=1e-6)
     inv_cell = grid / extent
-    u, v = pu[:, :n], pv[:, :n]
 
     def cell_of(p):
         return torch.clamp(torch.floor(p * inv_cell[:, None]), 0,
                            grid - 1).to(torch.int64)
 
-    x0 = cell_of(u - radii - umin[:, None])
-    x1 = cell_of(u + radii - umin[:, None])
-    y0 = cell_of(v - radii - vmin[:, None])
-    y1 = cell_of(v + radii - vmin[:, None])
-    on = radii > 0
-    span_w = torch.where(on, x1 - x0 + 1, 0)
-    span_h = torch.where(on, y1 - y0 + 1, 0)
+    x0 = cell_of(u - allr - umin[:, None])
+    x1 = cell_of(u + allr - umin[:, None])
+    y0 = cell_of(v - allr - vmin[:, None])
+    y1 = cell_of(v + allr - vmin[:, None])
+    span_w = torch.where(live, x1 - x0 + 1, 0)
+    span_h = torch.where(live, y1 - y0 + 1, 0)
     org = torch.stack([umin, vmin], 1)
+    kinds = (0, n, n + nc, allc.shape[0])
+    sizes = span_w * span_h
+    pairs = torch.stack([sizes[:, s:e].sum(1)
+                         for s, e in zip(kinds, kinds[1:])], 1)
     f64 = torch.float64
     host = torch.cat([torch.cat([e1, e2, org, inv_cell[:, None]], 1).to(f64),
-                      (span_w * span_h).sum(1, keepdim=True).to(f64)], 1)
-    host = host.cpu().numpy()
-    return LightBatch(L, e1, e2, org, inv_cell, u, v, ck, x0, y0, span_w,
-                      span_h, host[:, 9].astype(np.int64),
-                      host[:, :9].astype(np.float32), grid)
+                      pairs.to(f64)], 1).cpu().numpy()
+    return LightBatch(L, e1, e2, org, inv_cell, u, v, ck, allr, x0, y0,
+                      span_w, span_h, host[:, 9:].astype(np.int64),
+                      host[:, :9].astype(np.float32), grid, kinds)
 
 
 def split_light_batch(pairs: np.ndarray, max_pairs: int) -> list:
@@ -579,53 +489,63 @@ def split_light_batch(pairs: np.ndarray, max_pairs: int) -> list:
     return groups
 
 
-def bin_light_group(batch: LightBatch, lights: range, scene) -> LightGroup:
-    """The (cell, sphere) pairs of ``lights`` expanded and sorted in one
-    pass: by light, then cell, then descending far key, ties by sphere id
-    (``_csr_sort``'s order), with no read from the device."""
+def bin_light_group(batch: LightBatch, lights: range,
+                    kind: int = 0) -> LightGroup:
+    """The (cell, item) pairs of ``lights``' bounds of one kind, expanded
+    and sorted in one pass: by light, then cell, then descending far key,
+    ties by item id (``_csr_sort``'s order), with no read from the device."""
     ks = slice(lights.start, lights.stop)
+    cols = slice(batch.kinds[kind], batch.kinds[kind + 1])
     ncells = batch.grid * batch.grid
-    n = batch.ck.shape[1]
-    base = np.concatenate([[0], np.cumsum(batch.pairs[ks])])
+    base = np.concatenate([[0], np.cumsum(batch.pairs[ks, kind])])
     cell, item = _expand_pairs(
-        *(t[ks].reshape(-1) for t in (batch.x0, batch.y0, batch.span_w,
-                                      batch.span_h)),
+        *(t[ks, cols].reshape(-1) for t in (batch.x0, batch.y0, batch.span_w,
+                                            batch.span_h)),
         batch.grid, total=int(base[-1]))
-    key = (batch.ck[ks] + scene.sph_radius).reshape(-1)[item]
-    bucket = item // n * ncells + cell
+    key = (batch.ck[ks, cols] + batch.r[cols]).reshape(-1)[item]
+    bucket = item // max(cols.stop - cols.start, 1) * ncells + cell
     order = torch.argsort(-key, stable=True)
     bucket = bucket[order]
     by_cell = torch.argsort(bucket, stable=True)
     order = order[by_cell]
     first = torch.searchsorted(bucket[by_cell], torch.arange(
         len(lights) * ncells + 1, device=bucket.device))
-    return LightGroup(lights, item[order], key[order], first, base)
+    return LightGroup(lights, kind, item[order], key[order], first, base)
 
 
-def light_group_bins(batch: LightBatch, group: LightGroup, j: int) -> LightBins:
-    """Light ``j`` of ``group`` as ``build_light_bins`` gives it (spheres
-    only), in views of the group's tensors."""
+def _group_kind(batch: LightBatch, group: LightGroup, j: int) -> LightKind:
+    """Light ``j``'s cells of ``group``'s kind, in views of its tensors."""
     i = j - group.lights.start
     ncells = batch.grid * batch.grid
+    n = batch.kinds[group.kind + 1] - batch.kinds[group.kind]
     b0, b1 = int(group.base[i]), int(group.base[i + 1])
     start = group.first[i * ncells:(i + 1) * ncells]
     count = group.first[i * ncells + 1:(i + 1) * ncells + 1] - start
-    return LightBins(group.item[b0:b1] - i * batch.ck.shape[1], start - b0,
-                     count, batch.L[j], batch.e1[j], batch.e2[j], batch.org[j],
-                     batch.inv_cell[j], batch.grid, group.key[b0:b1])
+    return LightKind(group.item[b0:b1] - i * n, group.key[b0:b1], start - b0,
+                     count)
+
+
+def light_group_bins(batch: LightBatch, group: LightGroup, j: int) -> LightBins:
+    """Light ``j`` of a group of spheres as LightBins (spheres only), with
+    its host frame and the pass it came from."""
+    sph = _group_kind(batch, group, j)
+    return LightBins(sph.ids, sph.offs, sph.count, batch.L[j], batch.e1[j],
+                     batch.e2[j], batch.org[j], batch.inv_cell[j], batch.grid,
+                     sph.keys, frame=batch.frames[j], source=(batch, group, j))
 
 
 def light_group_records(batch: LightBatch, group: LightGroup, scene) -> list:
     """Each light's ``build_light_records`` tuple (lrec, offs, count,
-    lkmax), gathered for the whole group at once; each tuple holds views of
-    the group's tensors, its offsets counted from its own first record."""
+    lkmax), gathered for a whole group of spheres at once; each tuple holds
+    views of the group's tensors, its offsets counted from its own first
+    record."""
     ks = slice(group.lights.start, group.lights.stop)
     kg, ncells = len(group.lights), batch.grid * batch.grid
-    item, n = group.item, batch.ck.shape[1]
-    ids = item % n
-    cu = (batch.u[ks] - batch.org[ks, 0:1]).reshape(-1)[item]
-    cv = (batch.v[ks] - batch.org[ks, 1:2]).reshape(-1)[item]
-    ck = batch.ck[ks].reshape(-1)[item]
+    item, n = group.item, batch.kinds[1]
+    ids = item % max(n, 1)
+    cu = (batch.u[ks, :n] - batch.org[ks, 0:1]).reshape(-1)[item]
+    cv = (batch.v[ks, :n] - batch.org[ks, 1:2]).reshape(-1)[item]
+    ck = batch.ck[ks, :n].reshape(-1)[item]
     zero = torch.zeros_like(cu)
     lrec = torch.stack(
         [cu, cv, ck, scene.sph_radius[ids], group.key,
@@ -645,6 +565,47 @@ def light_group_records(batch: LightBatch, group: LightGroup, scene) -> list:
     b = [int(x) for x in group.base]
     return [(lrec[b[i]:b[i + 1]], offs[i], count[i], lkmax[i])
             for i in range(kg)]
+
+
+def build_light_bins(scene, light_dir, grid: int = 32,
+                     other_kinds: bool = False) -> LightBins:
+    """Light-grid cells -> sphere ids sorted by descending far key c.L + r:
+    one light through the batched pass.  With ``other_kinds`` the cylinders
+    and rings are binned too, by their bounding spheres (accel.py:544-560)."""
+    batch = frame_light_batch(scene, light_dir, grid)
+    lb = light_group_bins(batch, bin_light_group(batch, range(1)), 0)
+    if other_kinds:
+        cyl, ring = (_group_kind(batch, bin_light_group(batch, range(1), k), 0)
+                     for k in (1, 2))
+        lb = lb._replace(cyl=cyl, ring=ring)
+    return lb
+
+
+def build_light_records(lb: LightBins, scene):
+    """CSR shadow records for the kernel's sweep.
+
+    Returns (lrec (M, 8) f32 rows [cu, cv, ck, r, key, alpha, 0, 0],
+    offs (ncells,) i32, count (ncells,) i32, lkmax (ncells,) f32), where
+    (cu, cv) are lateral light-space coordinates, ck = c.L and
+    key = ck + r; rows run by descending key within each cell, and lkmax is
+    each cell's largest key (-BIG_DEPTH for an empty cell)."""
+    batch, group, j = lb.source
+    return light_group_records(batch, group, scene)[j - group.lights.start]
+
+
+def light_rows(dirs, frames, lightcol, rmax=0.0) -> np.ndarray:
+    """(K, 16) f32 light rows [dir(3), e1(3), e2(3), org(2), inv_cell,
+    lightcol, rmax, 0, 0] (a ``megakernel.LightStack`` row; its first 13
+    slots are ``params[15:28]``) from K directions, their (K, 9) host frames
+    [e1, e2, org, inv_cell] (``LightBatch.frames``), the lights' colour and
+    the scene's max radius, as the JAX front end stores them."""
+    dirs = np.asarray(dirs, np.float32).reshape(-1, 3)
+    rows = np.zeros((dirs.shape[0], 16), np.float32)
+    rows[:, 0:3] = dirs
+    rows[:, 3:12] = frames
+    rows[:, 12] = lightcol
+    rows[:, 13] = rmax
+    return rows
 
 
 # ---------------------------------------------------------------------------

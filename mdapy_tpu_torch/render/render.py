@@ -57,8 +57,8 @@ from ..core.elements import ele_radius, ele_rgb, type_rgb
 from .accel import (
     PAIR_BYTES, bin_light_group, build_light_bins, build_light_records,
     build_screen_bins, frame_light_batch, gather_other_records,
-    light_group_bins, light_group_records, occluder_records, other_table,
-    split_light_batch,
+    light_group_bins, light_group_records, light_rows, occluder_records,
+    other_table, split_light_batch,
 )
 from .camera import CameraParams, auto_camera, camera_frame, preset_camera
 from .config import RenderConfig
@@ -116,7 +116,7 @@ def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
     else None.
 
     The lights are built together, equal to what ``build_light_bins``,
-    ``build_light_records`` and ``light_row`` give each alone: one pass
+    ``build_light_records`` and ``light_rows`` give each alone: one pass
     frames every light and reads their frames and pair counts to the host
     (``accel.frame_light_batch``), then the lights are binned and their
     records gathered in groups of at most ``AO_BATCH_BUDGET_BYTES`` of
@@ -136,16 +136,13 @@ def build_ao_lights(scene, ao_samples: int, ao_brightness: float,
     dirs = np.concatenate([hemi, -hemi], axis=0)
     with tracing.span("ao_accel_build/bins"):
         batch = frame_light_batch(scene, dirs, grid)
-    rows = np.zeros((len(dirs), 16), np.float32)    # light_row's layout
-    rows[:, 0:3] = dirs
-    rows[:, 3:12] = batch.frames
-    rows[:, 12] = (4.0 / (2 * k2)) * float(ao_brightness)
-    rows[:, 13] = rmax
+    lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
+    rows = light_rows(dirs, batch.frames, lightcol, rmax)
     lights = []
-    for members in split_light_batch(batch.pairs,
+    for members in split_light_batch(batch.pairs[:, 0],
                                      AO_BATCH_BUDGET_BYTES // PAIR_BYTES):
         with tracing.span("ao_accel_build/bins"):
-            group = bin_light_group(batch, members, scene)
+            group = bin_light_group(batch, members)
         with tracing.span("ao_accel_build/records"):
             for j, rec in zip(members, light_group_records(batch, group, scene)):
                 occ = (occluder_records(table, light_group_bins(batch, group, j))

@@ -1,20 +1,22 @@
-"""The fast-AO sky lights built light by light, the oracle of the batched
+"""The fast-AO sky lights built each alone, the oracle of the batched
 build (``render.build_ao_lights``), and the rules the batched build is held
 to: ``tests/test_torch_ao_batched.py`` on the CPU and the card, and
 ``chip_smoke.py`` on the card.  Imports no jax.
 
-Per light the per-light build is ``build_light_bins`` ->
-``build_light_records`` -> ``megakernel.light_row``, and
-``occluder_records`` where the scene has cylinders or rings.  The batched
-build must give each light's CSR offsets, counts and each cell's set of
-sphere ids exactly, its records and cell key maxima within rtol 1e-6 with
-the keys non-increasing in every cell, and its row and occluder table
-within rtol 1e-6."""
+Each light built alone is the same pass with K = 1: ``build_light_bins`` ->
+``build_light_records``, its row from ``accel.light_rows``, and
+``occluder_records`` where the scene has cylinders or rings.  A light's
+cells must not depend on the lights built beside it: the batched build must
+give each light's CSR offsets, counts and each cell's set of sphere ids
+exactly, its records and cell key maxima within rtol 1e-6 with the keys
+non-increasing in every cell, and its row and occluder table within rtol
+1e-6.  The JAX build is the reference both are held to
+(``tests/test_torch_ao.py``, ``tests/test_torch_accel.py``)."""
 
 import numpy as np
 import torch
 
-from mdapy_tpu_torch.render import accel, megakernel
+from mdapy_tpu_torch.render import accel
 from mdapy_tpu_torch.render import render as trender
 
 RTOL = 1e-6
@@ -27,9 +29,10 @@ def sky_dirs(ao_samples: int) -> np.ndarray:
     return np.concatenate([hemi, -hemi], axis=0)
 
 
-def per_light(scene, ao_samples: int, ao_brightness: float, rmax: float,
-              grid: int = 32, table=None) -> list:
-    """[(LightBins, (lrow, lrec, loffs, lcnt, lkmax, occ))] light by light."""
+def each_alone(scene, ao_samples: int, ao_brightness: float, rmax: float,
+               grid: int = 32, table=None) -> list:
+    """[(LightBins, (lrow, lrec, loffs, lcnt, lkmax, occ))], each light
+    built alone."""
     k2 = max(1, ao_samples // 2)
     lightcol = (4.0 / (2 * k2)) * float(ao_brightness)
     out = []
@@ -37,14 +40,15 @@ def per_light(scene, ao_samples: int, ao_brightness: float, rmax: float,
         lb = accel.build_light_bins(scene, dk, grid=grid)
         rec = accel.build_light_records(lb, scene)
         occ = accel.occluder_records(table, lb) if table is not None else None
-        out.append((lb, (megakernel.light_row(dk, lb, lightcol, rmax), *rec, occ)))
+        row = accel.light_rows(dk, lb.frame, lightcol, rmax)[0]
+        out.append((lb, (row, *rec, occ)))
     return out
 
 
 def batched_bins(scene, ao_samples: int, grid: int = 32) -> list:
     """Each sky light's LightBins from the batched build, in one group."""
     batch = accel.frame_light_batch(scene, sky_dirs(ao_samples), grid)
-    group = accel.bin_light_group(batch, range(len(batch.pairs)), scene)
+    group = accel.bin_light_group(batch, range(len(batch.pairs)))
     return [accel.light_group_bins(batch, group, j)
             for j in range(len(batch.pairs))]
 
@@ -58,7 +62,7 @@ def _cell_sets(ids, count, n: int) -> torch.Tensor:
 
 
 def check_bins(got, ref, n: int) -> None:
-    """One light's batched LightBins against ``build_light_bins``'."""
+    """One light's batched LightBins against the light's built alone."""
     assert torch.equal(got.offs, ref.offs)
     assert torch.equal(got.count, ref.count)
     assert torch.equal(_cell_sets(got.ids, got.count, n),
@@ -70,8 +74,8 @@ def check_bins(got, ref, n: int) -> None:
 
 
 def check_light(got, ref) -> int:
-    """One ``build_ao_lights`` entry against the per-light build's; returns
-    its record count."""
+    """One ``build_ao_lights`` entry against the light's built alone;
+    returns its record count."""
     lrow, lrec, loffs, lcnt, lkmax, occ = got
     rrow, rrec, roffs, rcnt, rkmax, rocc = ref
     assert torch.equal(loffs, roffs) and loffs.dtype == torch.int32
@@ -99,9 +103,8 @@ def check_light(got, ref) -> int:
 def check_ao_lights(scene, lights, ao_samples: int, ao_brightness: float,
                     rmax: float, grid: int = 32, table=None) -> int:
     """``lights`` from ``build_ao_lights`` and the batched build's bins
-    against the per-light build, light by light; returns the records
-    compared."""
-    ref = per_light(scene, ao_samples, ao_brightness, rmax, grid, table)
+    against each light built alone; returns the records compared."""
+    ref = each_alone(scene, ao_samples, ao_brightness, rmax, grid, table)
     assert len(lights) == len(ref) == 2 * max(1, ao_samples // 2)
     n = scene.sph_center.shape[0]
     for got_lb, (ref_lb, _) in zip(batched_bins(scene, ao_samples, grid), ref):

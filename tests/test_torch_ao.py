@@ -31,6 +31,7 @@ from mdapy_tpu_torch.render import render as trender
 from mdapy_tpu_torch.render.convert import (
     extra_lights_from_numpy, light_records_from_numpy, screen_bins_from_numpy,
 )
+from mdapy_tpu_torch.render.config import RenderConfig as TRenderConfig
 from mdapy_tpu_torch.render.scene import build_scene
 
 W, H = 64, 48
@@ -155,8 +156,9 @@ def test_ao_kernel_slice_matches_interpret(preset, aa, shadows):
 @pytest.mark.parametrize("k", range(12))
 def test_ao_light_records_match(k):
     """Light bins, records and rows for each of the 12 sky directions of
-    ao_samples=12, upward and downward: the port's per-light build and its
-    batched build (``build_ao_lights``) against the JAX build."""
+    ao_samples=12, upward and downward: the port's build of each light
+    alone and of all 12 together (``build_ao_lights``) against the JAX
+    build."""
     pos, colors, radii = _fcc_scene()
     jscene = _jscene(pos, colors, radii)
     tscene = build_scene(pos, colors, radii, device="cpu")
@@ -190,6 +192,29 @@ def test_ao_light_records_match(k):
         tscene, 12, cfg.ao_brightness, 1.28, grid=GRID)[k]
     _match_jax_records(trecords, jrecords)
     np.testing.assert_allclose(trow, jrow, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("preset", ["perspective", "top"])
+def test_mega_params_from_the_port_light_bins(preset):
+    """The port's ``build_mega_params`` fed the port's own one-light
+    LightBins against the JAX ``build_mega_params`` fed the JAX bins: slots
+    0-63 within 1e-6.  The port's slots 15-27 come from the host frame the
+    bins carry, so the bins' device tensors are not read."""
+    pos, colors, radii = _fcc_scene()
+    jscene = _jscene(pos, colors, radii)
+    tscene = build_scene(pos, colors, radii, device="cpu")
+    frame = camera_frame(preset_camera(preset, pos, max_radius=1.28), W, H)
+    jlb = jaccel.build_light_bins(
+        jscene, np.asarray(frame["light_dir"], np.float32), grid=GRID)
+    tlb = taccel.build_light_bins(tscene, frame["light_dir"], grid=GRID)
+    tlb = tlb._replace(e1=None, e2=None, org=None, inv_cell=None)
+    lo, hi = pos.min(axis=0) - 1.28, pos.max(axis=0) + 1.28
+    opts = dict(ao_samples=12, ao_enabled=True)
+    jp = jmega.build_mega_params(frame, jlb, lo, hi, RenderConfig(**opts))
+    tp = tmega.build_mega_params(frame, tlb, lo, hi, TRenderConfig(**opts))
+    assert tp.dtype == np.float32 and tp.shape == (64,)
+    assert np.array_equal(tp[18:27], tlb.frame) and tlb.frame.any()
+    np.testing.assert_allclose(tp, np.asarray(jp), rtol=1e-6, atol=1e-6)
 
 
 def _match_jax_records(port, jax_records):

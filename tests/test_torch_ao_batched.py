@@ -1,7 +1,7 @@
 """The fast-AO sky lights built in batched passes (``render.build_ao_lights``)
-against the per-light build (``build_light_bins`` -> ``build_light_records``
--> ``light_row``, and ``occluder_records``), under ``tests/_ao_lights.py``'s
-rules: CSR offsets, counts and each cell's sphere ids exactly; records, cell
+against each light built alone (the same pass with K = 1:
+``build_light_bins`` -> ``build_light_records``, ``accel.light_rows`` and
+``occluder_records``), under ``tests/_ao_lights.py``'s rules: CSR offsets, counts and each cell's sphere ids exactly; records, cell
 key maxima, rows and occluder tables within rtol 1e-6, the keys
 non-increasing in every cell.
 
@@ -38,7 +38,7 @@ for path in (ROOT, ROOT / "tests"):
     if str(path) not in sys.path:
         sys.path.insert(0, str(path))
 
-from _ao_lights import check_ao_lights, per_light  # noqa: E402
+from _ao_lights import check_ao_lights, each_alone  # noqa: E402
 
 GRID = 32
 
@@ -73,9 +73,9 @@ def _scene(box: bool, device="cpu"):
 @pytest.mark.parametrize("ao,box", [(2, False), (4, False), (12, False),
                                     (20, False), (12, True)],
                          ids=["ao2", "ao4", "ao12", "ao20", "ao12_box"])
-def test_batched_lights_equal_the_per_light_build(ao, box):
-    """Every sky light of one batched pass equals the per-light build; with
-    the cell's 12 edges each light carries its occluder table."""
+def test_batched_lights_equal_each_light_built_alone(ao, box):
+    """Every sky light of one batched pass equals the light built alone;
+    with the cell's 12 edges each light carries its occluder table."""
     scene, table = _scene(box)
     with tracing.recording() as rec:
         with tracing.span("render"):
@@ -138,7 +138,7 @@ def card():
 @pytest.mark.cuda
 def test_demo_lights_and_frame_on_the_card(card):
     """The demo's block (``hea32k_still``: 32,000 atoms, AO 20) on the card:
-    the batched build against the per-light build, then the demo's
+    the batched build against each light built alone, then the demo's
     3000x3000 AA 20 frame through the megakernel with each set of sky
     lights, max |diff| 0."""
     from perfbench.drivers import render as bench
@@ -179,7 +179,7 @@ def test_demo_lights_and_frame_on_the_card(card):
                        direct_light_intensity=r["direct_light_intensity"])
     params = megakernel.build_mega_params(frame, lb, lo, hi, cfg)
     primary = accel.build_light_records(lb, scene)
-    oracle = [entry for _, entry in per_light(
+    oracle = [entry for _, entry in each_alone(
         scene, r["ao_samples"], r["ao_brightness"], rmax, GRID)]
     images = []
     for extra in (lights, oracle):
@@ -190,7 +190,7 @@ def test_demo_lights_and_frame_on_the_card(card):
             width=w, height=h, tiles_x=bins.tiles_x, tiles_y=bins.tiles_y,
             grid_n=GRID, eps=cfg.eps, perspective=True, shadows=True))
     torch.cuda.synchronize()
-    batched, per = images
+    batched, alone = images
     assert tuple(batched.shape) == (h, w, 3)
-    assert float(per.std()) > 0.02
-    assert float((batched - per).abs().max()) == 0.0
+    assert float(alone.std()) > 0.02
+    assert float((batched - alone).abs().max()) == 0.0
