@@ -13,8 +13,8 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. Build the hand kernels ``mdapy_tpu_torch/csrc/mega_render.cu``,
-   ``tile_kernels.cu`` and ``image_out.cu`` from the sources, one nvcc
-   each, started together,
+   ``tile_kernels.cu``, ``image_out.cu`` and ``chunk_gather.cu`` from the
+   sources, one nvcc each, started together,
    and print ptxas' register and shared-memory lines, and each measured
    megakernel variant's and tile kernel's registers, spill bytes and blocks
    an SM.
@@ -362,6 +362,13 @@ D2. [A6g]'s config-4 scene at 480x270 (float32, shadows):
    image against ``image_out_plain`` byte for byte (opaque and
    transparent), the kernel's time against its bound by bytes, the plain
    version on the card, and the copy to the host (``image_out_phase``).
+9g. The per-tile sphere records on the render demo's main path
+   (``hea32k_noao`` through ``perfbench``'s client, 3000x3000), right
+   after phase 9: the gather's launches over frames of new snapshots (one
+   a frame), the last frame's records against the plain version bit for
+   bit, the hand kernel ``csrc/chunk_gather.cu``'s registers and spills,
+   its time by CUDA events (median of 20) against its bound by bytes, and
+   the plain version's time (``chunk_gather_phase``).
 
 Phase 8 follows phase 3 on its scene, then B1f, T1, 5, A6, A6g, T3, 7, 4,
 6, T2, N1, E1, F1, P1, S1-S4, IO1, SY1, Q1, BL1, S5, S6, V1, Q2, U1, EL1,
@@ -705,9 +712,21 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def event_ms(fn, reps: int, warmup: int = 1) -> float:
+def event_ms(fn, reps: int, warmup: int = 1, median: bool = False) -> float:
+    """Mean ms a call of ``fn`` over ``reps`` calls between one pair of CUDA
+    events, after ``warmup`` calls; with ``median`` the median of ``reps``
+    calls, each between its own pair."""
     for _ in range(warmup):
         fn()
+    if median:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -872,20 +891,30 @@ def compare_peel(out_k, out_p, what: str) -> float:
     return err
 
 
-def drive(megakernel, frame_fn, what: str):
+def drive(megakernel, frame_fn, what: str, ren):
     """The main path's run: launch counts and the peak reset, a first frame
-    and WARM_FRAMES warm ones, each of which must launch the kernel once.
-    Returns (last image, first s, warm s a frame, kernel launches, the
-    first frame's launches, peak allocated bytes)."""
+    and WARM_FRAMES warm ones, each of which must launch the kernel once,
+    and the records' gather once a view change of ``ren`` (the first frame
+    at most; the warm frames keep the view).  Returns (last image, first s,
+    warm s a frame, kernel launches, the first frame's launches, peak
+    allocated bytes)."""
+    from mdapy_tpu_torch.render import gather
+
     torch.cuda.reset_peak_memory_stats()
     megakernel.reset_launches()
+    gather.reset_launches()
+    key = ren._accel_key
     img, t_first = sync_time(frame_fn)
     first = megakernel.launches
+    views = int(ren._accel_key != key)
     img, t_warm = sync_time(lambda: [frame_fn() for _ in range(WARM_FRAMES)][-1])
     if first != 1 or megakernel.launches != 1 + WARM_FRAMES:
         fail(f"{what}: {first} kernel launches in the first frame, "
              f"{megakernel.launches} in {1 + WARM_FRAMES} frames (one a frame "
              "expected)")
+    if gather.launches["chunk_gather"] != views:
+        fail(f"{what}: {gather.launches['chunk_gather']} launches of the "
+             f"records' gather over {views} view changes (one each expected)")
     return (img, t_first, t_warm / WARM_FRAMES, megakernel.launches, first,
             torch.cuda.max_memory_allocated())
 
@@ -3872,6 +3901,89 @@ def image_out_phase(card: str) -> dict:
             "fresh_copy_ms": fresh}
 
 
+def chunk_gather_phase(card: str, ptxas: dict) -> dict:
+    """Phase 9g: the per-tile sphere records (``render/gather.py``,
+    ``csrc/chunk_gather.cu``) on the render demo's main path: the benchmark's
+    ``hea32k_noao`` system (32,000 atoms, 3000x3000, AA 20, shadows) renders
+    a first frame and then FRAMES frames of new snapshots through
+    ``perfbench``'s client, each a view change that must launch the gather
+    and the megakernel once; the last frame's records, as the main path kept
+    them, against ``gather_chunk_data_plain`` on the card, bit for bit.  On
+    that frame's ids: the kernel's time by CUDA events (median of 20) and in
+    ``torch.profiler`` (10 launches) against its bound by bytes (records
+    written, ids read, the table read once), and the plain version's time
+    (median of 20).  ``ptxas``: the kernel's registers and spills from
+    phase 1's pass over the build log."""
+    from mdapy_tpu_torch.render import gather, megakernel
+    from perfbench.drivers import render as bench
+
+    frames = 3
+    root = Path(__file__).resolve().parent / "perfbench"
+    config = json.loads((root / "configs" / "hea32k_noao.json").read_text())
+    mix = json.loads((root / "traffic" / "displaced_ring.json").read_text())
+    traffic = bench.inputs(config, mix, 2**31 + 22)
+    system = bench.make(config, "cuda", 2**31 + 22)
+    client = bench.Client(system, traffic, config)
+    client.step(0)
+    gather.reset_launches()
+    megakernel.reset_launches()
+    for i in range(1, 1 + frames):
+        problem = client.problem(client.step(i))
+        if problem is not None:
+            fail(f"[9g] step {i}: {problem}")
+    launches = gather.launches["chunk_gather"]
+    if launches != frames or megakernel.launches != frames:
+        fail(f"[9g] {frames} frames of new snapshots launched the records' "
+             f"gather {launches} times and the megakernel "
+             f"{megakernel.launches} times (once a frame each expected)")
+    _, bins, got, _, _ = system._accel
+    scene = system._scene[0]
+    ids = bins.sph_chunks
+    table = gather.pack_sphere_table(scene.sph_center, scene.sph_radius,
+                                     scene.sph_color)
+    want = gather.gather_chunk_data_plain(ids, table)
+    torch.cuda.synchronize()
+    same = got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
+    max_abs = float((got - want).abs().max()) if got.shape == want.shape else None
+    if not same or max_abs != 0.0:
+        fail(f"[9g] the main path's records differ from the plain version's "
+             f"(max |diff| {max_abs})")
+    nbytes = got.nbytes + ids.nbytes + table.nbytes
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    ms = event_ms(lambda: gather.gather_chunk_data_cuda(ids, table), 20,
+                  median=True)
+    prof = profile_call(lambda: [gather.gather_chunk_data_cuda(ids, table)
+                                 for _ in range(10)])
+    device_ms = None if prof["device_ms"] is None else prof["device_ms"] / 10
+    plain_ms = event_ms(lambda: gather.gather_chunk_data_plain(ids, table), 20,
+                        median=True)
+    nb, nchunks, ch = ids.shape
+    print(f"[9g] {card}: chunk records of the demo's 3000x3000 frame "
+          f"({nb} tiles x {nchunks} chunks x {ch}: {ids.numel()} slots, "
+          f"{got.nbytes} B out, {ids.nbytes} B of ids): {launches} launches "
+          f"over {frames} frames of the main path; max |diff| {max_abs} "
+          f"against gather_chunk_data_plain, bit for bit; kernel {ms:.4f} ms "
+          f"(CUDA events, median of 20), "
+          + ("device time not measured" if device_ms is None else
+             f"{device_ms:.4f} ms a launch in torch.profiler "
+             f"(top {prof['top'][:2]})")
+          + f"; bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB at "
+          f"3.35 TB/s), share {bound_ms / ms:.1%} (events); plain version "
+          f"{plain_ms:.3f} ms (median of 20)")
+    for name, line in ptxas.items():
+        print(f"  [9g] ptxas {name}: {line}")
+    del system, client, scene, bins, ids, table, got, want
+    torch.cuda.empty_cache()
+    return {"name": "gather_chunk_data", "route": "cuda",
+            "source": "mdapy_tpu_torch/csrc/chunk_gather.cu",
+            "replaces": None, "launches": launches,
+            "launches_per_frame": launches / frames,
+            "max_abs_err": max_abs, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "ptxas": ptxas}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -3907,11 +4019,18 @@ def main() -> None:
     libs = load_all()
     print(f"[1] built {len(libs)} libraries together in "
           f"{time.perf_counter() - t0:.2f} s")
+    ptxas = {}   # kernel entry -> its ptxas lines (registers, spills)
     for lib in libs.values():
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
+        entry = None
         for line in lib.log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line or "spill" in line:
                 print("    " + line.strip())
+                if entry:
+                    ptxas.setdefault(entry, []).append(
+                        line.split(":", 1)[-1].strip())
     variants = {}
     for name, flags in MAIN_VARIANTS.items():
         variants[name] = megakernel.kernel_attrs(**flags)
@@ -3922,6 +4041,10 @@ def main() -> None:
 
     # ---- 9. the image out at the main path's shape --------------------------
     image_out_entry = image_out_phase(card)
+    # ---- 9g. the per-tile sphere records on the demo's chunks ---------------
+    chunk_gather_entry = chunk_gather_phase(
+        card, {k: " ".join(v) for k, v in ptxas.items()
+               if "chunk_gather_kernel" in k})
 
     # ---- 2. kernel vs plain, small scene ----------------------------------
     pos, colors, radii = fcc_block(8, seed=3)
@@ -4314,7 +4437,7 @@ def main() -> None:
                           height=height, device_output=True)
 
     img, t_first, t_warm, t1_launches, t1_per_frame, t1_peak = drive(
-        megakernel, t1_frame, "T1")
+        megakernel, t1_frame, "T1", ren)
     print(f"[T1] {card}: {len(pos)} atoms, {int(outer.sum())} of them (farther "
           f"than 0.3 x the {edge:.1f} A edge from the centre) at alpha 0.3, "
           f"{width}x{height} S={S} shadows, max_trans 4: first frame "
@@ -4497,7 +4620,7 @@ def main() -> None:
                           height=height, device_output=True)
 
     img, t_first, t_warm, t3_launches, t3_per_frame, t3_peak = drive(
-        megakernel, t3_frame, "T3")
+        megakernel, t3_frame, "T3", ren)
     print(f"[T3] {card}: config 2 with its {fe.N} atoms at alpha 0.4 (bonds and "
           f"cell opaque) {width}x{height} S={S} shadows, max_trans 4: "
           f"render_system frame {t_sys * 1e3:.1f} ms, first frame "
@@ -4816,7 +4939,7 @@ def main() -> None:
                           height=height, device_output=True)
 
     img, t_first, t_warm, t2_launches, t2_per_frame, t2_peak = drive(
-        megakernel, t2_frame, "T2")
+        megakernel, t2_frame, "T2", ren)
     print(f"[T2] {card}: config 3 with {int((grain == 0).sum())} atoms of grain "
           f"0 opaque and {int((grain != 0).sum())} at alpha 0.2, {width}x{height} "
           f"S={S} shadows + AO {K}, max_trans 4: first frame "
@@ -4967,7 +5090,7 @@ def main() -> None:
         "relit_bound_by": b3r_by,
         "filter_kernel": tile_attrs["shadow_filter"],
         "walk_kernel": tile_attrs["shadow_walk"],
-    }, image_out_entry]}))
+    }, image_out_entry, chunk_gather_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,7 @@
 """Build and bind the hand CUDA kernels at first use.
 
 ``nvcc`` compiles each source of ``mdapy_tpu_torch/csrc/`` (``mega_render.cu``,
-``tile_kernels.cu``, ``image_out.cu``) for ``sm_90a`` into a shared library
+``tile_kernels.cu``, ``image_out.cu``, ``chunk_gather.cu``) for ``sm_90a`` into a shared library
 with a plain C interface, which ``ctypes`` loads.  A library lands in
 ``mdapy_tpu_torch/_build/`` (git-ignored) under a name that hashes the
 source, the headers it includes and the flags, so an edited source or header
@@ -22,7 +22,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 __all__ = ["KernelLibrary", "load_all", "load_mega_render",
-           "load_tile_kernels", "load_image_out", "NVCC_FLAGS"]
+           "load_tile_kernels", "load_image_out", "load_chunk_gather",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -51,6 +52,10 @@ _IMAGE_OUT_ARGTYPES = (
     + [_c.c_int, _c.c_int]                             # alpha_byte, transparent
     + [_c.c_float] * 3 + [_c.c_void_p]                 # bg0, bg1, bg2, stream
 )
+_CHUNK_GATHER_ARGTYPES = (
+    [_c.c_void_p, _c.c_void_p, _c.c_longlong]          # ids, table, n_rows
+    + [_c.c_void_p, _c.c_longlong, _c.c_int, _c.c_void_p]   # out, n_slots, ch, stream
+)
 _SHADOW_ARGTYPES = (
     [_c.c_void_p] * 8                                  # uvt, cellxy, lit, lrec, offs, cnt, filt, scratch
     + [_c.c_longlong, _c.c_int, _c.c_float, _c.c_void_p]        # n, grid_n, eps, stream
@@ -68,6 +73,9 @@ _LIBRARIES = {
     }),
     "image_out": ("image_out.cu", {
         "image_out_rgba_launch": _IMAGE_OUT_ARGTYPES,
+    }),
+    "chunk_gather": ("chunk_gather.cu", {
+        "chunk_gather_launch": _CHUNK_GATHER_ARGTYPES,
     }),
 }
 
@@ -146,6 +154,11 @@ def load_tile_kernels() -> KernelLibrary:
 def load_image_out() -> KernelLibrary:
     """Build (if needed) and load the image out's RGBA kernel."""
     return _load("image_out")
+
+
+def load_chunk_gather() -> KernelLibrary:
+    """Build (if needed) and load the per-tile sphere records' gather."""
+    return _load("chunk_gather")
 
 
 def load_all() -> dict:

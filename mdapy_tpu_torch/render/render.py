@@ -473,8 +473,10 @@ class TachyonRender:
         nb, nchunks, ch = bins.sph_chunks.shape
         # past the budget the megakernel and render_image_pallas gather
         # each band's records as they render it (chunk_data None); within
-        # it the frame's records are gathered once, a band of tiles at a
-        # time, so the gather's peak stays near the records' own size
+        # it the frame's records are gathered once: on the card by one
+        # kernel launch that writes the whole result, on the CPU a band of
+        # tiles at a time, so the plain gather's peak stays near the
+        # records' own size
         one_shot = nb * nchunks * ch * 32 <= RECORD_BUDGET_BYTES
         lb = build_light_bins(scene, frame["light_dir"], grid=LIGHT_GRID,
                               other_kinds=route != "mega")

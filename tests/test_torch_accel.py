@@ -16,11 +16,12 @@ from mdapy_tpu.render import accel as jaccel
 from mdapy_tpu.render.camera import camera_frame as jcamera_frame
 from mdapy_tpu.render.camera import preset_camera as jpreset_camera
 from mdapy_tpu.render.pallas_kernels import gather_chunk_data as jgather
+from mdapy_tpu.render.pallas_kernels import gather_chunk_data_banded as jgather_banded
 from mdapy_tpu.render.scene import build_scene as jbuild_scene
 from mdapy_tpu_torch.render import accel as taccel
 from mdapy_tpu_torch.render.camera import CameraParams, camera_frame, preset_camera
 from mdapy_tpu_torch.render.convert import scene_from_numpy
-from mdapy_tpu_torch.render.gather import gather_chunk_data
+from mdapy_tpu_torch.render.gather import gather_chunk_data, gather_chunk_data_banded
 from mdapy_tpu_torch.render.scene import build_scene
 
 W, H = 96, 80
@@ -152,6 +153,36 @@ def test_gather_chunk_data_matches():
                             s.sph_center, s.sph_radius, s.sph_color)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("ch,banded", [(128, False), (45, False), (128, True)],
+                         ids=["ch128", "ch45", "ch128_banded"])
+def test_gather_chunk_data_padded_ids_match(ch, banded):
+    """The CPU gather (the plain version) against JAX's on the scene's
+    spheres with random ids, -1 padding and all-padded chunks, bit for bit;
+    banded in bands of 2 tiles."""
+    _, _, jscene, _, _ = _both()
+    s = scene_from_numpy(jscene, device="cpu")
+    n = s.sph_center.shape[0]
+    rng = np.random.default_rng(ch)
+    ids = rng.integers(0, n, (7, 3, ch))
+    ids[rng.random(ids.shape) < 0.3] = -1
+    ids[1, -1] = -1
+    ids[4] = -1
+    parts = (jscene.sph_center, jscene.sph_radius, jscene.sph_color)
+    tparts = (s.sph_center, s.sph_radius, s.sph_color)
+    if banded:
+        band = 2 * 3 * 8 * ch * 4
+        ref = np.asarray(jgather_banded(jnp.asarray(ids, jnp.int32), *parts,
+                                        band_bytes=band))
+        out = gather_chunk_data_banded(torch.as_tensor(ids), *tparts,
+                                       band_bytes=band)
+    else:
+        ref = np.asarray(jgather(jnp.asarray(ids, jnp.int32), *parts))
+        out = gather_chunk_data(torch.as_tensor(ids), *tparts)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert np.array_equal(out.numpy().view(np.int32), ref.view(np.int32))
+    assert (out.numpy()[4, :, 3] == -1.0).all()
 
 
 def test_screen_bins_exact_power_of_two_total():
